@@ -1,10 +1,10 @@
 """Build and load the hand-written CUDA kernels (`csrc/*.cu`).
 
-The kernels expose plain C entry points (no PyTorch headers), so one
-`nvcc` call compiles them into a shared library in seconds, and `ctypes`
-loads it.  The build runs at first use, under a lock, into
-`build/pyrodigal_tpu_torch/` beside the package; a library newer than
-every source is reused.
+The kernels expose plain C entry points (no PyTorch headers), so `nvcc`
+compiles them in seconds: one `nvcc -c` per source, all started together,
+then one link into a shared library that `ctypes` loads.  The build runs
+at first use, under a lock, into `build/pyrodigal_tpu_torch/` beside the
+package; a library newer than every source is reused.
 
 `-fmad=false` keeps every float multiply and add separately rounded, as
 the JAX reference computes them: a contracted FMA moves last bits, and
@@ -26,9 +26,10 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "pyrodigal_tpu_torch")
 LIB_PATH = os.path.join(BUILD_DIR, "libkernels.so")
 
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH + [
+    "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -36,13 +37,19 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # table, codes, out, B, S, stream
     "dc_chain_launch": [_P, _P, _P, _I, ctypes.c_longlong, _P],
+    # x, out, B, S, stream
+    "phase_cumsum_launch": [_P, _P, _I, ctypes.c_longlong, _P],
     # ndx, sv, kind4, edge, cs, rsc, usc, st_wt,
-    # sp, opv1, val3, t_sv, t_ndx, B, NT, relk, max_overlap, stream
-    "star_launch": [_P] * 13 + [_I, _I, _I, _I, _P],
+    # sp, opv1, val3, t_sv, t_ndx, B, NT, relk, max_overlap, geo_stride,
+    # stream
+    "star_launch": [_P] * 13 + [_I] * 5 + [_P],
     # ndx, sv, kind4, win_lo, ovlo, has_ov, tile_nn, cs, rsc, usc,
     # opv1, val3, t_sv, t_ndx, st_wt, score, traceb, ov, tbndx,
     # B, NT, fxs, stream
     "dp_mega_launch": [_P] * 19 + [_I, _I, _I, _P],
+    # ndx, sv, kind4, win_lo, cs, rsc, usc, opv1, val3, t_sv, t_ndx, st_wt,
+    # score, traceb, ov, tbndx, BT, n, stream
+    "dp_std_launch": [_P] * 16 + [_I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -76,16 +83,37 @@ def _stale():
 
 def _compile():
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    nvcc = _nvcc()
+    tag = os.getpid()
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_INFO["seconds"] = time.perf_counter() - t0
-    BUILD_INFO["ptxas"] = r.stdout + r.stderr
-    if r.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({r.returncode}):\n{(r.stdout + r.stderr)[-4000:]}")
-    os.replace(tmp, LIB_PATH)
+    objs, procs = [], []
+    for src in _sources():
+        obj = os.path.join(
+            BUILD_DIR, f"{os.path.basename(src)[:-3]}.{tag}.o")
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [p.communicate()[0] for p in procs]
+    BUILD_INFO["ptxas"] = "".join(logs)
+    failed = [(p.args[-1], log) for p, log in zip(procs, logs)
+              if p.returncode != 0]
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{src}:\n{log[-4000:]}" for src, log in failed))
+        tmp = f"{LIB_PATH}.{tag}.tmp"
+        r = subprocess.run([nvcc, *ARCH, "-shared", "-o", tmp, *objs],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                               f"{(r.stdout + r.stderr)[-4000:]}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+        BUILD_INFO["seconds"] = time.perf_counter() - t0
 
 
 def lib():

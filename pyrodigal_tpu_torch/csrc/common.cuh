@@ -1,11 +1,18 @@
-// Shared device helpers for the mega-route kernels.
+// Shared device helpers of the port's kernels.
 #pragma once
+
+#include <stdint.h>
 
 #include <cuda_runtime.h>
 
 // pyrodigal_tpu._constants
 #define OPER_DIST 60
 #define MAX_OPP_OVLP 200
+
+// dp_pallas.INT_NEG, NEGF / 2 and the "no candidate" key of the DP kernels
+constexpr int INT_NEG = -(1 << 30);
+constexpr float NEGF_HALF = -1e30f / 2.0f;
+constexpr long long NO_KEY = INT64_MIN;
 
 // Same-strand intergenic modifier (reference: _connection.h:52-78), in
 // float32 with the operation order of pyrodigal_tpu.ops.dp_pallas._igm_same.
@@ -26,4 +33,86 @@ __device__ __forceinline__ float igm_same(int ndx1, int strand1, float rsc1,
     bool operon = ((dist <= OPER_DIST) && !overlap) || (dist * 4 < OPER_DIST);
     float bonus = (2.0f - (float)dist / (float)OPER_DIST) * 0.15f * st_wt;
     return rval + (far ? -0.15f * st_wt : (operon ? bonus : 0.0f));
+}
+
+// Fixed-point quantisation, round half to even as jnp.round.
+__device__ __forceinline__ int quant(float x, float fxs) {
+    return __float2int_rn(x * fxs);
+}
+
+// A DP candidate as one int64 key: the value in the high word, `low` (the
+// source index, with more bits below it if the caller packs any) in the
+// low word, so a max over keys is the lexicographic (value, low) max.
+__device__ __forceinline__ long long pack(int value, unsigned low) {
+    return (long long)value * 4294967296LL + (long long)low;
+}
+
+__device__ __forceinline__ int key_value(long long key) {
+    return (int)((key - (long long)(unsigned)(key & 0xffffffffLL))
+                 / 4294967296LL);
+}
+
+// Triple-overlap term of a fwd-stop source for a rev-stop target
+// (dp_pallas.py:223-236, 866-882): the best star value of the target's
+// three frames, seeded at 0.0 with a strict `>`; returns the frame m (-1:
+// none) and *val.  `left` = ndx[j] + 2, `bnd` = tbndx[j].
+__device__ __forceinline__ int triple_overlap(int left, int tb_j, int bnd,
+                                             const float* v3, const int* sv3,
+                                             const int* nd3, float* val) {
+    float bv = 0.0f;
+    int bf = -1;
+    for (int k = 0; k < 3; ++k) {
+        int o = left - sv3[k] + 3;
+        bool vald = o > 0 && o < MAX_OPP_OVLP && o < nd3[k] - left
+                    && tb_j != -1 && o < sv3[k] - bnd - 2;
+        if (vald && v3[k] > bv) {
+            bv = v3[k];
+            bf = k;
+        }
+    }
+    *val = bv;
+    return bf;
+}
+
+// Block-wide max of one int64 key per thread; every thread gets it.  Ends
+// after a __syncthreads, with `red` (THREADS / 32 entries) still being
+// read: the caller syncs again before the next call.
+template <int THREADS>
+__device__ __forceinline__ long long block_max(long long key,
+                                               long long* red) {
+    for (int off = 16; off > 0; off >>= 1) {
+        long long other = __shfl_xor_sync(0xffffffffu, key, off);
+        key = other > key ? other : key;
+    }
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = key;
+    __syncthreads();
+    long long best = red[0];
+    for (int w = 1; w < THREADS / 32; ++w) best = red[w] > best ? red[w] : best;
+    return best;
+}
+
+// Exclusive block-wide prefix sum of one float per thread; *total gets the
+// block sum.  Ends with its shared buffer free for reuse.
+template <int THREADS>
+__device__ __forceinline__ float block_exclusive_scan(float x, float* total) {
+    constexpr int WARPS = THREADS / 32;
+    __shared__ float warp_sums[WARPS];
+    int lane = threadIdx.x & 31;
+    int warp = threadIdx.x >> 5;
+    float incl = x;
+    for (int off = 1; off < 32; off <<= 1) {
+        float y = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += y;
+    }
+    if (lane == 31) warp_sums[warp] = incl;
+    __syncthreads();
+    float warp_off = 0.0f;
+    float sum = 0.0f;
+    for (int w = 0; w < WARPS; ++w) {
+        if (w < warp) warp_off += warp_sums[w];
+        sum += warp_sums[w];
+    }
+    __syncthreads();
+    *total = sum;
+    return warp_off + (incl - x);
 }

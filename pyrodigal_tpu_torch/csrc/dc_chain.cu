@@ -26,31 +26,6 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int ITEMS = 4;
-constexpr int WARPS = THREADS / 32;
-
-// Exclusive block-wide prefix sum of one float per thread; *total gets
-// the block sum.  Ends with the shared buffer free for reuse.
-__device__ float block_exclusive_scan(float x, float* total) {
-    __shared__ float warp_sums[WARPS];
-    int lane = threadIdx.x & 31;
-    int warp = threadIdx.x >> 5;
-    float incl = x;
-    for (int off = 1; off < 32; off <<= 1) {
-        float y = __shfl_up_sync(0xffffffffu, incl, off);
-        if (lane >= off) incl += y;
-    }
-    if (lane == 31) warp_sums[warp] = incl;
-    __syncthreads();
-    float warp_off = 0.0f;
-    float sum = 0.0f;
-    for (int w = 0; w < WARPS; ++w) {
-        if (w < warp) warp_off += warp_sums[w];
-        sum += warp_sums[w];
-    }
-    __syncthreads();
-    *total = sum;
-    return warp_off + (incl - x);
-}
 
 __global__ void dc_chain_kernel(const float* __restrict__ table,
                                 const int* __restrict__ codes,
@@ -76,7 +51,7 @@ __global__ void dc_chain_kernel(const float* __restrict__ table,
             v[q] = s;
         }
         float total;
-        float excl = block_exclusive_scan(s, &total);
+        float excl = block_exclusive_scan<THREADS>(s, &total);
         float off = carry + excl;
         for (int q = 0; q < ITEMS; ++q) {
             long long m = m0 + q;

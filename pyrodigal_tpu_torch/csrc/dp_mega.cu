@@ -35,8 +35,6 @@
 // __syncthreads per node.  Quantisation is round-half-even (__float2int_rn),
 // as jnp.round.
 
-#include <stdint.h>
-
 #include "common.cuh"
 
 namespace {
@@ -48,54 +46,6 @@ constexpr int TILE = 2048;         // dp_pallas.MEGA_TILE
 constexpr int PREF = 4 * W;        // MEGA_CHUNKS * W_MEGA
 constexpr int RING = 256;          // dp_pallas.MEGA_RING
 constexpr int OVW = 384;           // kind-2 overlap window lanes
-constexpr int INT_NEG = -(1 << 30);
-constexpr float NEGF_HALF = -1e30f / 2.0f;
-constexpr long long NO_KEY = INT64_MIN;
-
-__device__ __forceinline__ long long pack(int value, int j) {
-    return (long long)value * 4294967296LL + (long long)(unsigned)j;
-}
-
-__device__ __forceinline__ int key_value(long long key) {
-    return (int)((key - (long long)(unsigned)(key & 0xffffffffLL))
-                 / 4294967296LL);
-}
-
-__device__ __forceinline__ int quant(float x, float fxs) {
-    return __float2int_rn(x * fxs);
-}
-
-// Triple-overlap term of a fwd-stop source j for rev-stop target i
-// (dp_pallas.py:866-882); returns the frame m (-1: none) and *val.
-__device__ __forceinline__ int triple_overlap(int left, int tb_j, int bnd,
-                                             const float* v3, const int* sv3,
-                                             const int* nd3, float* val) {
-    float bv = 0.0f;
-    int bf = -1;
-    for (int k = 0; k < 3; ++k) {
-        int o = left - sv3[k] + 3;
-        bool vald = o > 0 && o < MAX_OPP_OVLP && o < nd3[k] - left
-                    && tb_j != -1 && o < sv3[k] - bnd - 2;
-        if (vald && v3[k] > bv) {
-            bv = v3[k];
-            bf = k;
-        }
-    }
-    *val = bv;
-    return bf;
-}
-
-__device__ long long block_max(long long key, long long* red) {
-    for (int off = 16; off > 0; off >>= 1) {
-        long long other = __shfl_xor_sync(0xffffffffu, key, off);
-        key = other > key ? other : key;
-    }
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = key;
-    __syncthreads();
-    long long best = red[0];
-    for (int w = 1; w < WARPS; ++w) best = red[w] > best ? red[w] : best;
-    return best;
-}
 
 __global__ void dp_mega_kernel(
     const int* __restrict__ ndx, const int* __restrict__ sv,
@@ -268,7 +218,7 @@ __global__ void dp_mega_kernel(
                 }
             }
 
-            key = block_max(key, red);
+            key = block_max<THREADS>(key, red);
             if (tid == 0) {
                 const bool live = key != NO_KEY && key_value(key) >= 0;
                 const int best = live ? key_value(key) : 0;

@@ -1,26 +1,34 @@
 // star: flag=1 overlapping-start sweep + the DP's star tables.
 //
 // Replaces pyrodigal_tpu/ops/star_pallas.py::_star_kernel (wrapper
-// star_tables_mega).  For each (bin row b, stop node i) it replays the
-// reference's overlapping-start scan (lib.pyx:2279-2329) in the kernel's
-// exact order: t = 0 .. 2*relk-1, forward stops walking j = i+3 .. i+3-relk+1
-// then reverse stops walking j = i-3 .. i+relk-4, a strict `>` running max
-// (seeded at -100) over cs[j] + igm, and one pointer per frame of ndx[j].
-// It then reads the pointed node directly and writes the four tables per
-// frame: opv1 = cs[p] + igm(i -> p), val3 = cs[p] + igm(p -> i),
-// t_sv = stop_val[p] (-1e9 without a pointer) and t_ndx = ndx[p].
+// star_tables_mega) on the mega route; on the std route it replaces the
+// XLA star sweep of score_device._score_items (score_device.py:1036-1106)
+// and the table build in dp_pallas._dp_core's gather_near
+// (dp_pallas.py:388-420).  The geometry rows (ndx, stop_val, kind4, edge)
+// are one row shared by every bin row (mega: row stride 0) or one row per
+// bin row, each its own contig (std: row stride NT).  For each (bin row b,
+// stop node i) it replays the reference's overlapping-start scan
+// (lib.pyx:2279-2329) in the kernel's exact order: t = 0 .. 2*relk-1,
+// forward stops walking j = i+3 .. i+3-relk+1 then reverse stops walking
+// j = i-3 .. i+relk-4, a strict `>` running max (seeded at -100) over
+// cs[j] + igm, and one pointer per frame of ndx[j].  It then reads the
+// pointed node directly and writes the four tables per frame: opv1 =
+// cs[p] + igm(i -> p), val3 = cs[p] + igm(p -> i), t_sv = stop_val[p]
+// (-1e9 without a pointer) and t_ndx = ndx[p].  A pointer lies within relk
+// node indices of its stop, so gather_near's bound |p - i| <= relk + 4
+// always holds.
 //
 // What bounds it on the H100: memory.  Each thread reads 2*relk = 64
-// neighbours of three (B, NT) float rows and four shared geometry rows and
-// writes 15 values (B = 16, NT = 163,840: 157 MB of outputs); neighbouring
+// neighbours of three (B, NT) float rows and four geometry rows and writes
+// 15 values (B = 16, NT = 163,840: 157 MB of outputs); neighbouring
 // threads read neighbouring nodes, so the reads coalesce and the 64-fold
 // reuse hits L1/L2.  The TPU kernel's halo'd VMEM windows and banded
 // select loop (star_pallas.py:129-158) were a TPU device for the absence
 // of a fast gather; a thread here just indexes the pointed node.
 //
-// Design: one thread per (row, node), no shared memory.  The igm arithmetic
-// is float32 in the JAX operation order, and the library is built with
-// -fmad=false, so the strict `>` sees the reference's bits.
+// Design: one thread per (row, node), no shared memory.  The igm
+// arithmetic is float32 in the JAX operation order, and the library is
+// built with -fmad=false, so the strict `>` sees the reference's bits.
 
 #include "common.cuh"
 
@@ -41,11 +49,17 @@ __global__ void star_kernel(const int* __restrict__ ndx,
                             float* __restrict__ val3_out,
                             int* __restrict__ tsv_out,
                             int* __restrict__ tnd_out,
-                            int B, int NT, int relk, int mo) {
+                            int B, int NT, int relk, int mo,
+                            int geo_stride) {
     const int i = blockIdx.x * THREADS + threadIdx.x;
     const int b = blockIdx.y;
     if (i >= NT) return;
     const long long row = (long long)b * NT;
+    const long long grow = (long long)b * geo_stride;  // this row's geometry
+    ndx += grow;
+    sv += grow;
+    kind4 += grow;
+    edge += grow;
     const long long plane = (long long)B * NT;
     const float stw = st_wt[b];
 
@@ -128,11 +142,12 @@ extern "C" int star_launch(const int* ndx, const int* sv, const int* kind4,
                            const int* edge, const float* cs, const float* rsc,
                            const float* usc, const float* st_wt, int* sp,
                            float* opv1, float* val3, int* t_sv, int* t_ndx,
-                           int B, int NT, int relk, int mo,
+                           int B, int NT, int relk, int mo, int geo_stride,
                            cudaStream_t stream) {
     dim3 grid((NT + THREADS - 1) / THREADS, B);
     star_kernel<<<grid, THREADS, 0, stream>>>(ndx, sv, kind4, edge, cs, rsc,
                                               usc, st_wt, sp, opv1, val3,
-                                              t_sv, t_ndx, B, NT, relk, mo);
+                                              t_sv, t_ndx, B, NT, relk, mo,
+                                              geo_stride);
     return (int)cudaGetLastError();
 }

@@ -1,9 +1,11 @@
-"""The mega-route gene-path DP: CUDA kernel, plain twin and its entry.
+"""The gene-path DP: CUDA kernels, plain twins and their entries.
 
-Port of the mega half of `pyrodigal_tpu.ops.dp_pallas`
-(`_dp_kernel_mega`, `_run_kernel_mega`, `_dp_core_mega`).  `mega_dp`
-launches `csrc/dp_mega.cu` for CUDA tensors and runs `mega_dp_plain` for
-CPU tensors; `LAUNCHES` counts kernel launches.
+Port of `pyrodigal_tpu.ops.dp_pallas`: the mega half (`_dp_kernel_mega`,
+`_run_kernel_mega`, `_dp_core_mega`) and the std half (`_dp_kernel_b`,
+`_run_kernel_b`, `_dp_core`).  `mega_dp` / `std_dp` launch
+`csrc/dp_mega.cu` / `csrc/dp_std.cu` for CUDA tensors and run
+`mega_dp_plain` / `std_dp_plain` for CPU tensors; `LAUNCHES` counts kernel
+launches.
 
 Path scores accumulate in int32 fixed point (score * fxs), so every
 accumulation is exact and the reference's `>=` last-wins relaxation is an
@@ -18,7 +20,7 @@ from pyrodigal_tpu._constants import MAX_OPP_OVLP, OPER_DIST, STOP
 
 from .. import _build
 
-LAUNCHES = {"dp_mega": 0}
+LAUNCHES = {"dp_mega": 0, "dp_std": 0}
 
 NEG = -1e30
 NEGF_HALF = float(np.float32(-1e30)) / 2
@@ -33,6 +35,13 @@ MEGA_TILE = 2048
 MEGA_RING = 256
 OVW = 384                          # kind-2 overlap-window lanes
 PREF = MEGA_CHUNKS * W_MEGA
+
+# std route: sources of node i lie in [max(win_lo[i], i - STD_SPAN), i),
+# the JAX kernel's FIXED_CHUNKS windows of 640 (the host route sends a
+# geometry whose window reaches further down the mega route)
+W_STD = 640
+FIXED_CHUNKS = 3
+STD_SPAN = FIXED_CHUNKS * W_STD
 
 
 def _fdiv(a, c):
@@ -73,6 +82,13 @@ def _igm_same(ndx1, strand1, rsc1, usc1, ndx2, rsc2, usc2, st_wt):
 def _quant(x, fxs):
     """Round half to even, as jnp.round."""
     return torch.round(x * fxs).to(torch.int32)
+
+
+def kind4_of(typ, strand, valid):
+    """Node kind: 0 fwd start, 1 fwd stop, 2 rev start, 3 rev stop, 4 pad
+    (dp_pallas._dp_core)."""
+    kind = 2 * (strand != 1).to(torch.int32) + (typ == STOP).to(torch.int32)
+    return torch.where(valid != 0, kind, 4).to(torch.int32)
 
 
 # --------------------------------------------------------------------------
@@ -346,16 +362,13 @@ def mega_geometry(ndx, stop_val, typ, strand, valid, monotonic_ndx):
     NT = ndx.shape[0]
     dev = ndx.device
     is_valid = valid != 0
-    kind = (2 * (strand != 1).to(torch.int32)
-            + (typ == STOP).to(torch.int32))
-    kind4 = torch.where(is_valid, kind, 4).to(torch.int32)
+    kind4 = kind4_of(typ, strand, valid)
     tile_nn = is_valid.reshape(NT // MEGA_TILE, MEGA_TILE).sum(
         1).to(torch.int32)
     big = torch.tensor(2 ** 30, dtype=torch.int32, device=dev)
     sort_key = ndx if monotonic_ndx else torch.where(is_valid, ndx, big)
     ovlo = torch.searchsorted(sort_key, stop_val - 3).to(torch.int32)
-    fs_sorted = torch.sort(torch.where(is_valid & (kind == 1), ndx,
-                                       big)).values
+    fs_sorted = torch.sort(torch.where(kind4 == 1, ndx, big)).values
     lo_cnt = torch.searchsorted(fs_sorted, stop_val - 3)
     hi_cnt = torch.searchsorted(fs_sorted, stop_val + 195)
     has_ov = (hi_cnt > lo_cnt).to(torch.int32)
@@ -363,7 +376,7 @@ def mega_geometry(ndx, stop_val, typ, strand, valid, monotonic_ndx):
     vcum = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
                       is_valid.long().cumsum(0)])
     dens_ok = torch.all(torch.where(
-        is_valid & (kind == 2) & (has_ov != 0),
+        (kind4 == 2) & (has_ov != 0),
         vcum[hi_all] - vcum[ovlo.long()], 0) <= 250)
     return kind4, tile_nn, ovlo, has_ov, dens_ok
 
@@ -404,4 +417,205 @@ def _dp_core_mega(ndx, stop_val, win_lo, geometry, cs, rsc, usc, st_wt,
             torch.where((iidx >= int(nb[c])) & (iidx < int(nb[c + 1])),
                         tscore, -1.0).max(1).values
             for c in range(len(nb) - 1)])
+    return score, traceb, ovmark, tbndx, best
+
+
+# --------------------------------------------------------------------------
+# the std route: per-row geometry (each row one (contig, bin))
+# --------------------------------------------------------------------------
+
+def std_dp_plain(ndx, stop_val, kind4, win_lo, cs, rsc, usc, opv1, val3,
+                 t_sv, t_ndx, st_wt):
+    """Plain version of `std_dp`: `dp_pallas._dp_kernel_b` step by step,
+    vectorised over rows and window lanes, every rule in the JAX kernel's
+    form and float32 operation order."""
+    dev = cs.device
+    BT, n = cs.shape
+    i32 = torch.int32
+    score = torch.zeros((BT, n), dtype=i32, device=dev)
+    traceb = torch.full((BT, n), -1, dtype=i32, device=dev)
+    ovmark = torch.full((BT, n), -1, dtype=i32, device=dev)
+    tbndx = torch.zeros((BT, n), dtype=i32, device=dev)
+    h_valid = kind4.cpu().numpy() != 4
+    h_ext = np.where(h_valid, np.arange(n) - win_lo.cpu().numpy(), 0)
+    stw = st_wt[:, None]
+    igm_diff = -0.15 * stw
+    neg = torch.tensor(NEG, dtype=torch.float32, device=dev)
+    key_none = torch.iinfo(torch.int64).min
+
+    for i in np.nonzero(h_valid.any(0))[0]:
+        i = int(i)
+        L = min(i, STD_SPAN, int(h_ext[:, i].max()))
+        if L <= 0:
+            continue                         # no source can reach node i
+        js = torch.arange(i - L, i, device=dev)
+        i_ndx, i_sv, i_kind, wlo, cs_i, rsc_i, usc_i = (
+            a[:, i:i + 1] for a in (ndx, stop_val, kind4, win_lo, cs, rsc,
+                                    usc))
+        i_valid = i_kind != 4
+        i_fr = i_ndx % 3
+        i_is_stop = (i_kind == 1) | (i_kind == 3)
+        i_fwd = i_kind < 2
+        v3, sv3, nd3 = (a[:, :, i:i + 1] for a in (val3, t_sv, t_ndx))
+        (n1_ndx, n1_sv, n1_kind, n1_cs, n1_rsc, n1_usc, n1_score, n1_tb,
+         n1_tbndx) = (a[:, js] for a in (ndx, stop_val, kind4, cs, rsc, usc,
+                                          score, traceb, tbndx))
+        n1_fr = n1_ndx % 3
+        okm = (js >= wlo) & (js >= i - STD_SPAN) & (n1_kind != 4) & i_valid
+
+        f1_stop = n1_kind == 1
+        f1_start = n1_kind == 0
+        r1_stop = n1_kind == 3
+        r1_start = n1_kind == 2
+        n1_is_stop = f1_stop | r1_stop
+        n1_fwd = n1_kind < 2
+        n1_strand = torch.where(n1_fwd, 1, -1)
+        skip = ((~n1_is_stop & ~i_is_stop & (n1_fwd == i_fwd))
+                | (n1_fwd & ~n1_is_stop & ~i_fwd)
+                | (~n1_fwd & n1_is_stop & i_fwd)
+                | (~n1_fwd & ~n1_is_stop & i_fwd & i_is_stop)
+                | ((n1_fwd == i_fwd) & n1_fwd & ~n1_is_stop & i_is_stop
+                   & (n1_fr != i_fr))
+                | ((n1_fwd == i_fwd) & ~n1_fwd & n1_is_stop & ~i_is_stop
+                   & (n1_fr != i_fr)))
+        artifact = (n1_tb == -1) & (f1_stop | r1_start)
+        okm = okm & ~skip & ~artifact
+        igm_j_i = _igm_same(n1_ndx, n1_strand, n1_rsc, n1_usc, i_ndx, rsc_i,
+                            usc_i, stw)
+
+        # case 0: i fwd start
+        ok0 = ((f1_stop & ((n1_ndx + 2) < i_ndx))
+               | (~f1_stop & (n1_ndx < i_ndx)))
+        sc0 = torch.where(f1_stop, igm_j_i, igm_diff)
+        # case 1: i fwd stop
+        opv = opv1[:, :, js].gather(0, i_fr.long()[None].expand(
+            1, BT, L))[0]
+        ok1 = i_sv < n1_ndx
+        sc1 = torch.where(f1_start, n1_cs, opv)
+        # case 2: i rev start
+        bnd = torch.where(n1_tb == -1, 0, n1_tbndx)
+        ovlp = (n1_ndx + 2) - (i_sv - 2) + 1
+        ov_ok = (((i_sv - 2) < (n1_ndx + 2)) & (ovlp < MAX_OPP_OVLP)
+                 & ((n1_ndx - i_sv) < (i_ndx - n1_ndx + 3))
+                 & ((n1_ndx - i_sv) < (i_sv - 3 - bnd)))
+        ok2 = (r1_stop & (n1_sv > i_ndx)) | (~r1_stop & ov_ok)
+        sc2 = torch.where(r1_stop, cs_i + 0 * igm_diff, cs_i + igm_diff)
+        # case 3: i rev stop (triple-overlap frame loop, bv seeded at 0.0)
+        left = n1_ndx + 2
+        right = i_ndx - 2
+        bv = torch.zeros((BT, L), dtype=torch.float32, device=dev)
+        bf = torch.full((BT, L), -1, dtype=i32, device=dev)
+        for k in range(3):
+            o = left - sv3[k] + 3
+            vald = ((o > 0) & (o < MAX_OPP_OVLP) & (o < nd3[k] - left)
+                    & (n1_tb != -1) & (o < sv3[k] - bnd - 2))
+            better = vald & (v3[k] > bv)
+            bv = torch.where(better, v3[k], bv)
+            bf = torch.where(better, k, bf)
+        f_sc = torch.where(bf != -1, bv, igm_diff)
+        v3j = torch.where(n1_fr == 0, v3[0],
+                          torch.where(n1_fr == 1, v3[1], v3[2]))
+        sc3 = torch.where(f1_stop, f_sc, torch.where(r1_start, igm_j_i, v3j))
+        ok3 = ((f1_stop & (left < right)) | (r1_start & (n1_ndx < right))
+               | (~f1_stop & ~r1_start & (n1_sv > i_ndx)))
+        m3 = torch.where(f1_stop, bf, -1)
+
+        cand = torch.where(
+            i_kind == 0, torch.where(okm & ok0, sc0, neg),
+            torch.where(
+                i_kind == 1, torch.where(okm & ok1, sc1, neg),
+                torch.where(i_kind == 2, torch.where(okm & ok2, sc2, neg),
+                            torch.where(okm & ok3, sc3, neg))))
+        m = torch.where(i_kind == 3, m3, -1)
+        ok_cand = cand > NEGF_HALF
+        candq = _quant(torch.where(ok_cand, cand, 0.0), FXS)
+        total = (n1_score + candq).long()
+        # lexicographic (total, j, m) max: the JAX kernel's largest lane
+        # among equal totals, nearest chunk first
+        key = torch.where(ok_cand, total * 2 ** 32 + (js * 4 + m + 1),
+                          key_none).max(1).values
+        live = key != key_none
+        best = (key >> 32).to(i32)
+        low = key & 0xFFFFFFFF
+        do = live & (best > INT_NEG // 2) & (best >= 0) & i_valid[:, 0]
+        bj = (low >> 2).to(i32)
+        score[:, i] = torch.where(do, best, score[:, i])
+        traceb[:, i] = torch.where(do, bj, traceb[:, i])
+        ovmark[:, i] = torch.where(do, (low & 3).to(i32) - 1, ovmark[:, i])
+        tbndx[:, i] = torch.where(
+            do, ndx.gather(1, bj.clamp(min=0).long()[:, None])[:, 0],
+            tbndx[:, i])
+    return score, traceb, ovmark, tbndx
+
+
+def std_dp(ndx, stop_val, kind4, win_lo, cs, rsc, usc, opv1, val3, t_sv,
+           t_ndx, st_wt):
+    """Std DP over BT rows, each with its own geometry.
+
+    Geometry rows ndx/stop_val/kind4/win_lo and scores cs/rsc/usc: (BT, n)
+    int32 / f32; star tables opv1/val3 (f32) and t_sv/t_ndx (int32):
+    (3, BT, n); st_wt: (BT,) f32.  Returns score (fixed point, scale FXS),
+    traceb, ovmark and tbndx, each (BT, n) int32, tracebacks as node
+    indices.  Raises when a valid node's window reaches further back than
+    STD_SPAN nodes: the host route sends such geometries to the mega
+    route."""
+    BT, n = cs.shape
+    ext = torch.where(kind4 != 4, torch.arange(n, device=kind4.device)
+                      - win_lo, 0)
+    if BT and n and int(ext.max()) > STD_SPAN:
+        raise ValueError(f"std_dp: a window reaches {int(ext.max())} nodes "
+                         f"back, past {STD_SPAN}")
+    if not cs.is_cuda:
+        return std_dp_plain(ndx, stop_val, kind4, win_lo, cs, rsc, usc,
+                            opv1, val3, t_sv, t_ndx, st_wt)
+    dev = cs.device
+    shapes = (
+        [(a, torch.int32, (BT, n), name) for a, name in (
+            (ndx, "ndx"), (stop_val, "stop_val"), (kind4, "kind4"),
+            (win_lo, "win_lo"))]
+        + [(a, torch.float32, (BT, n), name) for a, name in (
+            (cs, "cs"), (rsc, "rsc"), (usc, "usc"))]
+        + [(opv1, torch.float32, (3, BT, n), "opv1"),
+           (val3, torch.float32, (3, BT, n), "val3"),
+           (t_sv, torch.int32, (3, BT, n), "t_sv"),
+           (t_ndx, torch.int32, (3, BT, n), "t_ndx"),
+           (st_wt, torch.float32, (BT,), "st_wt")])
+    for a, dtype, shape, name in shapes:
+        if a.dtype != dtype or tuple(a.shape) != shape:
+            raise ValueError(f"{name}: expected {dtype} {shape}, got "
+                             f"{a.dtype} {tuple(a.shape)}")
+        if not a.is_contiguous() or a.device != dev:
+            raise ValueError(f"{name}: not contiguous on {dev}")
+    out = [torch.empty((BT, n), dtype=torch.int32, device=dev)
+           for _ in range(4)]
+    lib = _build.lib()
+    _build.check(lib.dp_std_launch(
+        *(a.data_ptr() for a in (ndx, stop_val, kind4, win_lo, cs, rsc, usc,
+                                 opv1, val3, t_sv, t_ndx, st_wt)),
+        *(o.data_ptr() for o in out), BT, n,
+        torch.cuda.current_stream(dev).cuda_stream), "dp_std")
+    LAUNCHES["dp_std"] += 1
+    return tuple(out)
+
+
+def _dp_core(ndx, stop_val, typ, strand, win_lo, valid, cs, rsc, usc, tables,
+             st_wt):
+    """`dp_pallas._dp_core` with the star tables given (the star kernel
+    builds them on this route, in place of gather_near).
+
+    Geometry rows ndx/stop_val/typ/strand/win_lo/valid and scores
+    cs/rsc/usc: (BT, n), one row per work item; tables = (opv1, val3,
+    t_sv, t_ndx), each (3, BT, n); st_wt (BT,).  Returns (score f32,
+    traceb, ovmark, tbndx, best): tracebacks are node indices (the JAX
+    kernel's lanes less its front pad W), and best is the best terminal
+    path score per row, the max over valid kind-1 and kind-2 nodes, else
+    -1.0."""
+    ndx, stop_val, win_lo = (a.to(torch.int32).contiguous()
+                             for a in (ndx, stop_val, win_lo))
+    kind4 = kind4_of(typ, strand, valid)
+    score_fx, traceb, ovmark, tbndx = std_dp(
+        ndx, stop_val, kind4, win_lo, cs, rsc, usc, *tables, st_wt)
+    score = score_fx.float() * (1.0 / FXS)
+    terminal = (kind4 == 1) | (kind4 == 2)
+    best = torch.where(terminal, score, -1.0).max(1).values
     return score, traceb, ovmark, tbndx, best

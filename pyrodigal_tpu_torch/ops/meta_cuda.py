@@ -1,20 +1,24 @@
-"""Meta-mode gene calling on the GPU: the mega route.
+"""Meta-mode gene calling on the GPU: the std and mega routes.
 
 Port of `pyrodigal_tpu.ops.meta_tpu.TpuMetaRunner`.  Host prep (node
-extraction, geometry) runs on a thread pool; contigs are packed end to
-end into launches whose rows are the union of their candidate bins; each
-launch scores every (contig, bin) on the device (`score_device`, the
-dc-chain, star and mega-DP kernels) and returns one best path score per
-(contig, bin); the exact C engine then re-runs the winning bin(s) of each
-contig, so the emitted genes are the reference's byte for byte
-(reference: lib.pyx:5317-5396 for the sequential bin sweep this
-replaces).
+extraction, geometry) runs on a thread pool and picks each contig's
+route as the JAX package does:
 
-Every contig takes the mega route here, including the short ones that
-the JAX package sends down its bucketed "std" route (not ported yet).
-`route_counts` counts contigs by the route the JAX package would have
-taken; "c" -- the exact C engine for the whole contig -- is taken only
-by geometries `_mega_ok` refuses, as in the JAX package.
+* "std": contigs of at most SEQ_BUCKET bp whose geometries fit the std
+  buckets.  Launches hold up to BATCH work items, one (contig, bin) per
+  row with its own geometry (`score_device.score_dp_launch`: scoring,
+  the phase-cumsum, star and std-DP kernels);
+* "mega": longer contigs, and short ones that overflow a std bucket,
+  packed end to end into launches whose rows are the union of their
+  candidate bins (`score_device.score_dp_launch_mega`: scoring, the
+  dc-chain, star and mega-DP kernels);
+* "c": mega geometries `_mega_ok` refuses; the exact C engine takes the
+  whole contig.
+
+Each launch returns one best path score per (contig, bin); the exact C
+engine then re-runs the winning bin(s) of each contig, so the emitted
+genes are the reference's byte for byte (reference: lib.pyx:5317-5396
+for the sequential bin sweep this replaces).
 """
 
 import concurrent.futures
@@ -31,12 +35,17 @@ from pyrodigal_tpu._constants import STOP
 from . import dp_cuda
 from . import score_device as sd
 
-# the JAX package's std-route limits (node bucket, sequence bucket,
-# window budget: dp_pallas.FIXED_CHUNKS windows of 640), used only to tell
-# which route it would take
-_STD_NODES = 3072
-_STD_SEQ = 49152
-_STD_EXT = 3 * 640
+# std route (the JAX package's TpuMetaRunner defaults): node and sequence
+# buckets, DP window and windows per node (the std DP kernel's), work
+# items per launch, the row multiple a launch is rounded to, and
+# geometries per launch
+NODE_BUCKET = 3072
+SEQ_BUCKET = 49152
+WINDOW = dp_cuda.W_STD
+FIXED_CHUNKS = dp_cuda.FIXED_CHUNKS
+BATCH = 128
+BLOCK = 16
+MAX_GEOMS = 16
 # star scan span, in node indices (reference: lib.pyx:2279-2329)
 RELK = 32
 PREP_THREADS = 8
@@ -122,13 +131,11 @@ class CudaMetaRunner:
         return int(in_win.max()) <= dp_cuda.MEGA_RING
 
     def _prepare_contig(self, seq):
-        """Returns (bin_ids, geoms, nodes_by_tt, route): route is the one
-        the JAX package would take -- "std" (short contigs), "mega" or
-        "c" (host C engine) -- and "std" turns "c" here when a geometry
-        does not fit the mega kernel."""
+        """Returns (bin_ids, geoms, nodes_by_tt, route), route one of "std",
+        "mega" or "c" (meta_tpu.py:169-204)."""
         cand = self._candidate_bins(seq)
         geoms, nodes_by_tt = {}, {}
-        route = "std" if seq.slen <= _STD_SEQ else "mega"
+        route = "std" if seq.slen <= SEQ_BUCKET else "mega"
         for b in cand:
             tt = self.bins[b].training_info.translation_table
             if tt in geoms:
@@ -144,14 +151,14 @@ class CudaMetaRunner:
                                     self.max_overlap, RELK)
             nn = g["nn"]
             if route == "std" and (
-                    nn > _STD_NODES or g["star_overflow"]
+                    nn > NODE_BUCKET or g["star_overflow"]
                     or (nn and int((np.arange(nn) - g["win_lo"]).max())
-                        > _STD_EXT)):
+                        > FIXED_CHUNKS * WINDOW)):
                 route = "mega"
             geoms[tt] = g
-        # the std route takes node-free geometries; the mega route does not
-        if any(not self._mega_ok(g) and (route == "mega" or g["nn"])
-               for g in geoms.values()):
+        # every geometry of a mega contig must fit the mega kernel (the
+        # route may have turned "mega" after earlier geometries were seen)
+        if route == "mega" and not all(map(self._mega_ok, geoms.values())):
             route = "c"
         return cand, geoms, nodes_by_tt, route
 
@@ -229,6 +236,62 @@ class CudaMetaRunner:
             is_meta=True, closed=self.closed, has_nonsd=nonsd,
             relk=RELK, max_overlap=self.max_overlap, fxs=fxs)
         return best.cpu().numpy(), rows, CP, B
+
+    def _pack_std(self, items):
+        """Std launches from [(ci, bin_ids, geoms)] in contig order
+        (meta_tpu.py:561-585): a contig's bins never split across
+        launches, and a launch closes when its work would pass BATCH rows
+        or its geometries MAX_GEOMS.  Each launch is {"work": [(ci, bin,
+        key)], "geoms": {key: geometry}}, key = (ci, translation table)."""
+        launches, work, geoms = [], [], {}
+        for ci, cand, contig_geoms in items:
+            tts = {self.bins[b].training_info.translation_table
+                   for b in cand}
+            if work and (len(work) + len(cand) > BATCH
+                         or len(geoms) + len(tts) > MAX_GEOMS):
+                launches.append({"work": work, "geoms": geoms})
+                work, geoms = [], {}
+            for b in cand:
+                key = (ci, self.bins[b].training_info.translation_table)
+                geoms.setdefault(key, contig_geoms[key[1]])
+                work.append((ci, b, key))
+        if work:
+            launches.append({"work": work, "geoms": geoms})
+        return launches
+
+    def _std_inputs(self, work, geoms):
+        """Device inputs of one std launch: (geo, bin_idx, gidx,
+        has_nonsd).  Rows are the work items, then pads on geometry 0 and
+        bin 0 (ignored) up to a multiple of BLOCK.  The JAX package pads
+        every launch to BATCH rows so that XLA compiles one shape
+        (meta_tpu.py:214-216); a CUDA launch compiles nothing per shape,
+        and no row's result depends on another row, so the rounding
+        changes the launch's shape and no result."""
+        keys = list(geoms)
+        gmap = {k: i for i, k in enumerate(keys)}
+        BT = -(-len(work) // BLOCK) * BLOCK
+        packed = sd.pack_geometries([geoms[k] for k in keys], len(keys),
+                                    NODE_BUCKET, SEQ_BUCKET)
+        bin_idx = np.zeros(BT, np.int64)
+        gidx = np.zeros(BT, np.int64)
+        for k, (_ci, b, key) in enumerate(work):
+            bin_idx[k] = b
+            gidx[k] = gmap[key]
+        nonsd = bool((self.tables.uses_sd_np[
+            [b for _ci, b, _key in work]] == 0).any())
+        dev = self.device
+        return (sd.to_device(packed, dev), torch.from_numpy(bin_idx).to(dev),
+                torch.from_numpy(gidx).to(dev), nonsd)
+
+    def _sweep_std(self, work, geoms):
+        """One std launch; returns the (BT,) best scores (numpy), row k
+        for work item k."""
+        geo, bin_idx, gidx, nonsd = self._std_inputs(work, geoms)
+        best = sd.score_dp_launch(
+            self.tables.as_tuple(), geo, bin_idx, gidx, is_meta=True,
+            closed=self.closed, has_nonsd=nonsd, relk=RELK,
+            max_overlap=self.max_overlap)
+        return best.cpu().numpy()
 
     # -- finishing (host, exact C on the winning bin) -------------------------
 
@@ -322,9 +385,10 @@ class CudaMetaRunner:
             preps.append(self.pool.submit(self._prepare_contig, seq))
 
         futures = {}
-        groups = []              # dispatched launches, FIFO
-        open_groups = []         # still packing
-        pending = {}             # ci -> un-pulled item count
+        groups = []              # dispatched mega launches, FIFO
+        open_groups = []         # mega launches still packing
+        pending = {}             # ci -> un-pulled mega item count
+        std_items = []           # (ci, bin_ids, geoms) of std contigs
         nodes_maps = {}
 
         def dispatch(gr):
@@ -342,6 +406,9 @@ class CudaMetaRunner:
             elif not cand:
                 futures[ci] = self.pool.submit(
                     self._produce_empty, contigs[ci], num_seq_start + ci)
+            elif route == "std":
+                nodes_maps[ci] = nodes_by_tt
+                std_items.append((ci, cand, geoms))
             else:
                 nodes_maps[ci] = nodes_by_tt
                 by_tt = {}
@@ -356,10 +423,24 @@ class CudaMetaRunner:
                         dispatch(full)
         for gr in open_groups:
             dispatch(gr)
+        # std launches run on the launcher after the mega launches
+        std_launches = self._pack_std(std_items)
+        for L in std_launches:
+            L["fut"] = self.launcher.submit(self._sweep_std, L["work"],
+                                            L["geoms"])
 
-        # pull launches in dispatch order; each contig goes to the exact-C
-        # winner finishing when its last item arrives, while the device
-        # runs later launches
+        def submit(ci, cands):
+            if max(s for _b, s in cands) <= -100.0:
+                futures[ci] = self.pool.submit(
+                    self._produce_empty, contigs[ci], num_seq_start + ci)
+            else:
+                futures[ci] = self.pool.submit(
+                    self._produce_winner, contigs[ci], num_seq_start + ci,
+                    cands, nodes_maps[ci])
+
+        # pull launches in dispatch order, mega first; each contig goes to
+        # the exact-C winner finishing when its last item arrives, while
+        # the device runs later launches
         cands_by_ci = {}
         for gr in groups:
             bests, rows, _CP, _B = gr["fut"].result()
@@ -370,13 +451,11 @@ class CudaMetaRunner:
                     (b, float(bests[k, pos[b]])) for b in it["rows"])
                 pending[ci] -= 1
                 if pending[ci] == 0:
-                    cands = cands_by_ci.pop(ci)
-                    if max(s for _b, s in cands) <= -100.0:
-                        futures[ci] = self.pool.submit(
-                            self._produce_empty, contigs[ci],
-                            num_seq_start + ci)
-                    else:
-                        futures[ci] = self.pool.submit(
-                            self._produce_winner, contigs[ci],
-                            num_seq_start + ci, cands, nodes_maps[ci])
+                    submit(ci, cands_by_ci.pop(ci))
+        for L in std_launches:
+            bests = L["fut"].result()
+            for k, (ci, b, _key) in enumerate(L["work"]):
+                cands_by_ci.setdefault(ci, []).append((b, float(bests[k])))
+            for ci in dict.fromkeys(ci for ci, _b, _key in L["work"]):
+                submit(ci, cands_by_ci.pop(ci))
         return [futures[ci].result() for ci in range(len(contigs))]

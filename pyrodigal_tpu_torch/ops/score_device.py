@@ -1,13 +1,17 @@
-"""Per-bin node scoring for the mega route, in PyTorch.
+"""Per-bin node scoring in PyTorch, and the two launches built on it.
 
-Port of `pyrodigal_tpu.ops.score_device` for one shared geometry (a
-single contig, or several laid end to end by `pack_geometries_multi`)
-with the candidate bins as rows: the 6-mer codes, SD / upstream / motif
-candidates, the coding, length, RBS, upstream and start scores
-(reference: lib.pyx:2119-2487).  The TPU devices of the reference
+Port of `pyrodigal_tpu.ops.score_device`: the 6-mer codes, SD / upstream /
+motif candidates, the coding, length, RBS, upstream and start scores
+(reference: lib.pyx:2119-2487) of every node under every row's bin.  Two
+geometry layouts, as in the reference: the mega route's one shared
+geometry (a single contig, or several laid end to end by
+`pack_geometries_multi`) with the candidate bins as rows, and the std
+route's G stacked geometries (`pack_geometries`) with one work item
+(contig, bin) per row, picked by `gidx`.  The TPU devices of the reference
 (one-hot matrix-unit lookups, masked-roll window gathers, the blocked
 associative scan, the geometry byte-packing for a slow link) become
-plain gathers and scans; the dc prefix sums run in the dc-chain kernel.
+plain gathers and scans; the dc prefix sums run in the dc-chain kernel
+(shared geometry) or the phase-cumsum kernel (per-row geometry).
 
 The numpy geometry helpers are copies of the reference's: the reference
 modules import jax at the top, and this package must not.
@@ -327,8 +331,9 @@ def _unordered(k):
 def _seg_scan(values, is_elem, is_reset, reset_val, init, reverse):
     """Segmented running-max scan along axis 1.
 
-    values: (BT, n, C); is_elem/is_reset: (n, C) bool; init: (BT, C) seed
-    state applied before (after, if reverse) the scanned axis.  Returns
+    values: (BT, n, C); is_elem/is_reset: (R, n, C) bool, R = 1 or BT;
+    init: (BT, C) seed state applied before (after, if reverse) the
+    scanned axis.  Returns
     (inclusive, exclusive, final) of shapes (BT, n, C) / (BT, C).
 
     A cummax over int64 keys (segment id << 32 | order-preserving f32
@@ -355,22 +360,31 @@ def _seg_scan(values, is_elem, is_reset, reset_val, init, reverse):
 
 
 def _sel_phase(scan, phase):
-    """Pick each node's own channel from a (BT, n, 3) scan."""
-    return scan.gather(2, phase.long()[None, :, None].expand(
+    """Pick each node's own channel from a (BT, n, 3) scan; phase (R, n)."""
+    return scan.gather(2, phase.long()[..., None].expand(
         scan.shape[0], -1, 1))[..., 0]
 
 
+def _take(table, idx):
+    """``table[b, idx[b, k]]`` for a (BT, K) table and (R, n) indices,
+    R = 1 (shared by every row) or BT."""
+    if idx.shape[0] == 1:
+        return table[:, idx[0].long()]
+    return table.gather(1, idx.long())
+
+
 def _derive_m6(geo):
-    """6-mer code rows (S,) from the digit sequence, with mer_ndx
-    semantics (N folds to C; reference: _sequence.h mer_ndx)."""
-    d = geo["digits"][0].to(torch.int32)
-    S = d.shape[0]
+    """6-mer code rows (G, S) from the digit sequences, with mer_ndx
+    semantics (N folds to C; reference: _sequence.h mer_ndx); m6r is zero
+    past each geometry's own sequence."""
+    d = geo["digits"].to(torch.int32)
+    S = d.shape[1]
     b = d & 3
     bc = torch.where(d < 4, 3 - b, 2)
     bp = torch.nn.functional.pad(b, (0, 6))
     bcp = torch.nn.functional.pad(bc, (6, 0))
-    m6f = sum(bp[k:k + S] << (2 * k) for k in range(6))
-    m6r = sum(bcp[6 - k:6 - k + S] << (2 * k) for k in range(6))
+    m6f = sum(bp[:, k:k + S] << (2 * k) for k in range(6))
+    m6r = sum(bcp[:, 6 - k:6 - k + S] << (2 * k) for k in range(6))
     pos = torch.arange(S, device=d.device)
     if "blo" in geo:
         # packed geometry: zero m6r outside every contig's [blo, bhi)
@@ -379,16 +393,18 @@ def _derive_m6(geo):
             inc[lo:hi] = True
         m6r = torch.where(inc, m6r, 0)
     else:
-        m6r = torch.where(pos < geo["slen"][0], m6r, 0)
+        m6r = torch.where(pos < geo["slen"][:, None], m6r, 0)
     return m6f.to(torch.int32), m6r.to(torch.int32)
 
 
 def _window(m6, start, L):
-    """``out[n, w] = m6[start[n] + w]`` for w < L, 0 outside [0, S)."""
-    S = m6.shape[0]
-    idx = start.long()[:, None] + torch.arange(L, device=m6.device)
+    """``out[g, k, w] = m6[g, start[g, k] + w]`` for w < L, 0 outside
+    [0, S)."""
+    G, S = m6.shape
+    idx = start.long()[..., None] + torch.arange(L, device=m6.device)
     ok = (idx >= 0) & (idx < S)
-    return torch.where(ok, m6[idx.clamp(0, S - 1)], 0)
+    got = m6.gather(1, idx.clamp(0, S - 1).reshape(G, -1))
+    return torch.where(ok, got.reshape(idx.shape), 0)
 
 
 def _motif_slots():
@@ -417,79 +433,88 @@ _MOT_O, _MOT_SP, _MOT_LEN = _motif_slots()
 
 
 def _derive_candidates(geo, m6f, m6r, has_nonsd):
-    """Per-node candidate tensors: SD codes (n, 15) and validity,
-    upstream-composition cells (n, 32) and validity, motif candidates
-    (n, 52) or None.  Every candidate is a constant offset from the node,
-    so each node reads two 6-mer-code windows: [ndx-48, ndx+3) of m6f and
-    [ndx+1, ndx+49) of m6r."""
-    ndx = geo["n32"][0, 0]
-    n8 = geo["n8"][:, 0].to(torch.int32)
-    fwd = (n8[1] == 1)[:, None]
-    is_start = (n8[0] != STOP)[:, None]
-    not_edge = (n8[2] == 0)[:, None]
+    """Per-geometry candidate tensors: SD codes (G, n, 15) and validity,
+    upstream-composition cells (G, n, 32) and validity, motif candidates
+    (G, n, 52) or None.  Every candidate is a constant offset from the
+    node, so each node reads two 6-mer-code windows: [ndx-48, ndx+3) of m6f
+    and [ndx+1, ndx+49) of m6r."""
+    ndx = geo["n32"][0]                                # (G, n)
+    n8 = geo["n8"].to(torch.int32)
+    fwd = (n8[1] == 1)[..., None]
+    is_start = (n8[0] != STOP)[..., None]
+    not_edge = (n8[2] == 0)[..., None]
     dev = ndx.device
     # validity uses local (per-contig) coordinates
     if "loc" in geo:
-        loc = geo["loc"][0][:, None]
-        lsl = geo["lslen"][0][:, None]
+        loc = geo["loc"][..., None]
+        lsl = geo["lslen"][..., None]
     else:
-        loc = ndx[:, None]
-        lsl = geo["slen"][0]
+        loc = ndx[..., None]
+        lsl = geo["slen"][:, None, None]
     Wf = _window(m6f, ndx - 48, 51)
     Wr = _window(m6r, ndx + 1, 48)
 
     # SD: window position p reads the 6-mer at ndx-20+p (fwd; lane 28+p of
     # Wf) / ndx+20-p (rev; lane 19-p of Wr)
-    p = torch.arange(15, device=dev)[None, :]
+    p = torch.arange(15, device=dev)
     idx = torch.where(fwd, loc - 20 + p, loc + 20 - p)
     ok = (idx >= 0) & is_start & not_edge
-    code = torch.where(fwd, Wf[:, 28:43], Wr[:, 5:20].flip(1))
+    code = torch.where(fwd, Wf[..., 28:43], Wr[..., 5:20].flip(-1))
 
     # upstream-composition mers: slots 0-1 = -1,-2; 2-31 = -15..-44
     ks = torch.tensor([1, 2] + list(range(15, 45)), dtype=torch.int32,
-                      device=dev)[None, :]
+                      device=dev)
     start_coord = torch.where(fwd, loc, lsl - 1 - loc)
     uok = (ks <= start_coord) & is_start
-    umer_f = torch.cat([Wf[:, 46:48].flip(1), Wf[:, 4:34].flip(1)], 1)
-    umer_r = torch.cat([Wr[:, 0:2], Wr[:, 14:44]], 1)
+    umer_f = torch.cat([Wf[..., 46:48].flip(-1), Wf[..., 4:34].flip(-1)], -1)
+    umer_r = torch.cat([Wr[..., 0:2], Wr[..., 14:44]], -1)
     umer = torch.where(fwd, umer_f, umer_r) & 3
     ups_flat = torch.where(
-        uok, torch.arange(32, device=dev)[None, :] * 4 + umer, 0)
+        uok, torch.arange(32, device=dev) * 4 + umer, 0)
 
     mot = None
     if has_nonsd:
-        o = torch.from_numpy(_MOT_O).to(dev)[None, :]
+        o = torch.from_numpy(_MOT_O).to(dev)
         mok = (start_coord + o >= 0) & is_start & not_edge
         mers = []
         for i in range(3, -1, -1):
-            mf = Wf[:, 30 - i:43 - i]
-            mr = Wr[:, 5 + i:18 + i].flip(1)
+            mf = Wf[..., 30 - i:43 - i]
+            mr = Wr[..., 5 + i:18 + i].flip(-1)
             mers.append(torch.where(fwd, mf, mr) & ((1 << (2 * (i + 3))) - 1))
-        mmer = torch.cat(mers, 1)
+        mmer = torch.cat(mers, -1)
         mot = torch.where(
             mok,
-            torch.from_numpy(_MOT_LEN).to(dev)[None, :] * 16384
-            + torch.from_numpy(_MOT_SP).to(dev)[None, :] * 4096 + mmer,
+            torch.from_numpy(_MOT_LEN).to(dev) * 16384
+            + torch.from_numpy(_MOT_SP).to(dev) * 4096 + mmer,
             -1)
     return code, ok, ups_flat, uok, mot
 
 
-def _score_items(tables, geo, bin_idx, *, is_meta, closed, has_nonsd):
-    """cscore / sscore / rscore / uscore of every node under every bin row
+def _score_items(tables, geo, bin_idx, gidx=None, *, is_meta, closed,
+                 has_nonsd):
+    """cscore / sscore / rscore / uscore of every node under every row
     (reference: lib.pyx:2119-2487); `score_device._score_items` with
-    skip_star=True for one shared geometry.
+    skip_star=True.  Without `gidx` every row shares the one geometry of
+    `geo` (mega route); with `gidx` (BT,) row b reads geometry gidx[b] of
+    the G stacked in `geo` (std route).
 
-    Returns the geometry rows (n,) -- ndx, stop_val, typ, strand, win_lo,
-    valid, edge -- the (BT, n) scores cscore, ssc, rsc, usc, and st_wt of
-    the rows (BT,)."""
+    Returns the geometry rows (R, n) -- ndx, stop_val, typ, strand,
+    win_lo, valid, edge; R = 1 shared, else BT -- the (BT, n) scores
+    cscore, ssc, rsc, usc, and st_wt of the rows (BT,)."""
     (gene_dc, rbs_wt, ups_comp, type_wt, mot_wt, st_wt_t, no_mot_t,
      uses_sd_t, log_ns_t, lfmin_t, lfmax_t, _sd_ex, _sd_mm,
      sd_wi) = tables
-    ndx, stop_val, win_lo = (geo["n32"][k, 0] for k in range(3))
-    n8 = geo["n8"][:, 0].to(torch.int32)
-    typ, strand, edge, stop_real, euf, valid = (n8[k] for k in range(6))
+
+    def rows(a):
+        """(G, ...) per-geometry values as (R, ...) rows."""
+        return a if gidx is None else a[gidx]
+
+    ndx, stop_val, win_lo = (rows(geo["n32"][k]) for k in range(3))
+    n8 = geo["n8"].to(torch.int32)
+    typ, strand, edge, stop_real, euf, valid = (rows(n8[k])
+                                                for k in range(6))
     BT = bin_idx.shape[0]
-    n = ndx.shape[0]
+    n = ndx.shape[1]
     dev = ndx.device
 
     m6f, m6r = _derive_m6(geo)
@@ -498,11 +523,11 @@ def _score_items(tables, geo, bin_idx, *, is_meta, closed, has_nonsd):
 
     stw = st_wt_t[bin_idx][:, None]                    # (BT, 1)
     if "loc" in geo:
-        loc = geo["loc"][0]
-        slen = geo["lslen"][0]
+        loc = geo["loc"]
+        slen = geo["lslen"]
     else:
         loc = ndx
-        slen = geo["slen"][0:1]
+        slen = rows(geo["slen"])[:, None]
     slen_f = slen.float()
     start = (typ != STOP) & (valid != 0)
     stop = (typ == STOP) & (valid != 0)
@@ -512,12 +537,17 @@ def _score_items(tables, geo, bin_idx, *, is_meta, closed, has_nonsd):
 
     # ---- cscore pass 1: hexamer sums as phase-wise prefix differences ----
     dcrow = gene_dc[bin_idx].contiguous()              # (BT, 4096)
-    S = m6f.shape[0]
-    Cf = star_cuda.dc_phase_cumsum(dcrow, m6f)
-    Cr = star_cuda.dc_phase_cumsum(dcrow, m6r)
+    S = m6f.shape[1]
+    if m6f.shape[0] == 1:
+        # one code row for every row: the fused lookup + prefix sum
+        Cf = star_cuda.dc_phase_cumsum(dcrow, m6f[0])
+        Cr = star_cuda.dc_phase_cumsum(dcrow, m6r[0])
+    else:
+        Cf = star_cuda.phase_cumsum(_take(dcrow, rows(m6f)))
+        Cr = star_cuda.phase_cumsum(_take(dcrow, rows(m6r)))
 
     def pref(C, j):
-        return torch.where(j >= 0, C[:, j.clamp(0, S - 1).long()], 0.0)
+        return torch.where(j >= 0, _take(C, j.clamp(0, S - 1)), 0.0)
 
     cs1_f = pref(Cf, stop_val - 3) - pref(Cf, ndx - 3)
     cs1_r = pref(Cr, ndx) - pref(Cr, stop_val)
@@ -525,11 +555,11 @@ def _score_items(tables, geo, bin_idx, *, is_meta, closed, has_nonsd):
     del Cf, Cr
 
     # ---- pass 2: ascending-coding penalty (segmented running max) --------
-    ph1 = torch.nn.functional.one_hot(phase.long(), 3).bool()   # (n, 3)
+    ph1 = torch.nn.functional.one_hot(phase.long(), 3).bool()  # (R, n, 3)
     neg1e4 = torch.full((BT, 3), -1e4, dtype=F32, device=dev)
 
     def chan(pred):
-        return pred[:, None] & ph1
+        return pred[..., None] & ph1
 
     v_c = cscore[..., None].expand(BT, n, 3)
     inc_f, _, fin2f = _seg_scan(v_c, chan(start & fwd), chan(stop & fwd),
@@ -575,8 +605,8 @@ def _score_items(tables, geo, bin_idx, *, is_meta, closed, has_nonsd):
     rbs0 = torch.zeros((BT, n), dtype=torch.int64, device=dev)
     rbs1 = torch.zeros((BT, n), dtype=torch.int64, device=dev)
     for p in range(15):
-        vp = wi_row[:, p][:, g_code[:, p].long()].long()  # (BT, n)
-        okp = g_ok[:, p]
+        vp = _take(wi_row[:, p], rows(g_code[..., p])).long()  # (BT, n)
+        okp = rows(g_ok[..., p])
         rbs0 = torch.maximum(rbs0, torch.where(okp, vp >> 5, 0))
         rbs1 = torch.maximum(rbs1, torch.where(okp, vp & 31, 0))
     w0 = rbs_row.gather(1, rbs0)
@@ -584,14 +614,14 @@ def _score_items(tables, geo, bin_idx, *, is_meta, closed, has_nonsd):
     sd_score = torch.maximum(w0, w1) * stw
 
     if has_nonsd:
-        mer = (g_mot & 4095).long()
+        mer = g_mot & 4095
         mrow16 = mot_wt[bin_idx].reshape(BT, 16, 4096)
         best = torch.full((BT, n), -100.0, dtype=F32, device=dev)
         for s in range(52):
             ls = int(_MOT_LEN[s]) * 4 + int(_MOT_SP[s])
-            vals = mrow16[:, ls][:, mer[:, s]]
+            vals = _take(mrow16[:, ls], rows(mer[..., s]))
             best = torch.maximum(
-                best, torch.where(g_mot[:, s] >= 0, vals, -100.0))
+                best, torch.where(rows(g_mot[..., s]) >= 0, vals, -100.0))
         no_mot = no_mot_t[bin_idx][:, None]
         mot_sc = torch.where((best == -4.0) | (best < no_mot + 0.69),
                              no_mot, best)
@@ -606,17 +636,25 @@ def _score_items(tables, geo, bin_idx, *, is_meta, closed, has_nonsd):
     else:
         rscore = sd_score
 
-    # ---- upstream composition: per-node cell counts against each bin's
-    # ups_comp row (f64 accumulation: counts are small integers) ---------
-    counts = torch.zeros((n, 128), dtype=torch.float64, device=dev)
-    counts.scatter_add_(1, g_ups_flat.long(), g_uok.double())
-    u_all = (ups_comp[bin_idx].double() @ counts.T).float()   # (BT, n)
+    # ---- upstream composition: per-node cell counts of each geometry
+    # against the bins' ups_comp rows (f64 accumulation: counts are small
+    # integers).  Shared geometry: the rows' own bins, (BT, n).  Per-row
+    # geometry: every (geometry, bin) pair, of which each row picks its
+    # own (score_device.py:946-966) ----------------------------------------
+    G, NB = g_ups_flat.shape[0], ups_comp.shape[0]
+    counts = torch.zeros((G, n, 128), dtype=torch.float64, device=dev)
+    counts.scatter_add_(2, g_ups_flat.long(), g_uok.double())
+    if gidx is None:
+        u_all = (ups_comp[bin_idx].double() @ counts[0].T).float()
+    else:
+        u_all = torch.einsum("gnc,bc->gbn", counts, ups_comp.double()) \
+            .reshape(G * NB, n)[gidx * NB + bin_idx].float()
     u_base = u_all * (0.4 * stw)
 
     # ---- start score assembly (reference: lib.pyx:2331-2487) -------------
     edge0 = edge + (1 - stop_real)
     tw = type_wt[bin_idx]                              # (BT, 3)
-    tw_n = tw.gather(1, typ.clamp(0, 2).long()[None].expand(BT, n))
+    tw_n = tw.gather(1, typ.clamp(0, 2).long().expand(BT, n))
     tsc = torch.where(edgeb, EDGE_BONUS * stw / edge0.float(), tw_n * stw)
     rsc = torch.where(edgeb, 0.0, rscore)
     usc = torch.where(edgeb, 0.0, u_base + torch.where(
@@ -678,20 +716,46 @@ def _score_items(tables, geo, bin_idx, *, is_meta, closed, has_nonsd):
             cscore, ssc, rsc, usc, stw[:, 0])
 
 
-def score_only(tables, geo, bin_idx, *, is_meta, closed, has_nonsd):
+def score_only(tables, geo, bin_idx, gidx=None, *, is_meta, closed,
+               has_nonsd):
     """Scoring without the DP, laid out as the reference's
     `score_device.score_only` with geometry rows broadcast to (BT, n):
     (ndx, stop_val, typ, strand, win_lo, valid, cscore, ssc, rsc, usc,
     edge, st_wt).  The reference returns its XLA star pointers where this
-    returns `edge`: on this route the star kernel computes them."""
+    returns `edge`: here the star kernel computes them."""
     (ndx, stop_val, typ, strand, win_lo, valid, edge,
      cscore, ssc, rsc, usc, stw) = _score_items(
-        tables, geo, bin_idx, is_meta=is_meta, closed=closed,
+        tables, geo, bin_idx, gidx, is_meta=is_meta, closed=closed,
         has_nonsd=has_nonsd)
     BT = bin_idx.shape[0]
     rows = [a.expand(BT, -1) for a in (ndx, stop_val, typ, strand, win_lo,
                                        valid)]
     return (*rows, cscore, ssc, rsc, usc, edge.expand(BT, -1), stw)
+
+
+def score_dp_launch(tables, geo, bin_idx, gidx, *, is_meta, closed,
+                    has_nonsd, relk, max_overlap):
+    """One std launch: BT work items, row b the (contig, bin) pair of
+    geometry gidx[b] of `pack_geometries` and bin bin_idx[b]: scoring, the
+    star kernel over per-row geometry, the std DP kernel.  Returns the
+    best terminal path score per row, (BT,) f32 (the reference's
+    `pack_winners`, without the bitcast; padded rows give values the
+    caller ignores)."""
+    (ndx, stop_val, typ, strand, win_lo, valid, edge,
+     cscore, ssc, rsc, usc, stw) = _score_items(
+        tables, geo, bin_idx, gidx, is_meta=is_meta, closed=closed,
+        has_nonsd=has_nonsd)
+    cs = (cscore + ssc).contiguous()
+    rsc = rsc.contiguous()
+    usc = usc.contiguous()
+    stw = stw.contiguous()
+    kind4 = dp_cuda.kind4_of(typ, strand, valid)
+    _sp, *tables = star_cuda.star_tables(
+        ndx.contiguous(), stop_val.contiguous(), kind4, edge.contiguous(),
+        cs, rsc, usc, stw, relk, max_overlap)
+    *_, best = dp_cuda._dp_core(ndx, stop_val, typ, strand, win_lo, valid,
+                                cs, rsc, usc, tables, stw)
+    return best
 
 
 def score_dp_launch_mega(tables, geo, bin_idx, *, is_meta, closed,
@@ -707,13 +771,15 @@ def score_dp_launch_mega(tables, geo, bin_idx, *, is_meta, closed,
      cscore, ssc, rsc, usc, stw) = _score_items(
         tables, geo, bin_idx, is_meta=is_meta, closed=closed,
         has_nonsd=has_nonsd)
+    ndx, stop_val, typ, strand, win_lo, valid, edge = (
+        a[0] for a in (ndx, stop_val, typ, strand, win_lo, valid, edge))
     geometry = dp_cuda.mega_geometry(ndx, stop_val, typ, strand, valid,
                                      monotonic_ndx="loc" in geo)
     cs = (cscore + ssc).contiguous()
     rsc = rsc.contiguous()
     usc = usc.contiguous()
     stw = stw.contiguous()
-    _sp, *tables = star_cuda.star_tables_mega(
+    _sp, *tables = star_cuda.star_tables(
         ndx[None].contiguous(), stop_val[None].contiguous(),
         geometry[0][None], edge[None].contiguous(), cs, rsc, usc, stw, relk,
         max_overlap)

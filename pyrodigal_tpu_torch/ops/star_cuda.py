@@ -1,9 +1,11 @@
-"""dc-chain prefix sums and the star sweep: CUDA kernels and plain twins.
+"""Phase prefix sums and the star sweep: CUDA kernels and plain twins.
 
 Port of `pyrodigal_tpu.ops.star_pallas` (`dc_phase_cumsum`,
-`star_tables_mega`).  Each wrapper launches its kernel from
-`csrc/dc_chain.cu` / `csrc/star.cu` for CUDA tensors and runs the plain
-PyTorch version for CPU tensors; `LAUNCHES` counts kernel launches.
+`phase_cumsum`, `star_tables_mega`) and of the std route's XLA star sweep
+(`score_device._score_items`).  Each wrapper launches its kernel from
+`csrc/dc_chain.cu`, `csrc/phase_cumsum.cu` or `csrc/star.cu` for CUDA
+tensors and runs the plain PyTorch version for CPU tensors; `LAUNCHES`
+counts kernel launches.
 """
 
 import torch
@@ -11,7 +13,7 @@ import torch
 from .. import _build
 from .dp_cuda import _igm_same as igm_same, NEG
 
-LAUNCHES = {"dc_chain": 0, "star": 0}
+LAUNCHES = {"dc_chain": 0, "phase_cumsum": 0, "star": 0}
 
 T_SV_NONE = -(10 ** 9)
 
@@ -37,11 +39,7 @@ def dc_phase_cumsum_plain(table, codes):
 
     Accumulates in float64 and rounds once, so this is the correctly
     rounded prefix sum up to f64 error."""
-    x = table[:, codes.long()].double()
-    B, S = x.shape
-    pad = (-S) % 3
-    x = torch.nn.functional.pad(x, (0, pad)).reshape(B, -1, 3)
-    return x.cumsum(1).reshape(B, -1)[:, :S].float()
+    return phase_cumsum_plain(table[:, codes.long()])
 
 
 def dc_phase_cumsum(table, codes):
@@ -65,17 +63,46 @@ def dc_phase_cumsum(table, codes):
 
 
 # --------------------------------------------------------------------------
+# phase cumsum: per-phase prefix sum of values already looked up
+# --------------------------------------------------------------------------
+
+def phase_cumsum_plain(x):
+    """`out[b, p]` = sum of `x[b, q]` over q <= p, q = p mod 3, summed in
+    float64 and rounded once."""
+    B, S = x.shape
+    pad = (-S) % 3
+    xp = torch.nn.functional.pad(x.double(), (0, pad)).reshape(B, -1, 3)
+    return xp.cumsum(1).reshape(B, -1)[:, :S].float()
+
+
+def phase_cumsum(x):
+    """Cf/Cr of the std route: (B, S) f32, each row its own looked-up dc
+    scores -> (B, S) f32."""
+    if not x.is_cuda:
+        return phase_cumsum_plain(x)
+    B, S = x.shape
+    _check(x, torch.float32, (B, S), "x")
+    out = torch.empty_like(x)
+    lib = _build.lib()
+    _build.check(lib.phase_cumsum_launch(
+        x.data_ptr(), out.data_ptr(), B, S, _stream(x.device)),
+        "phase_cumsum")
+    LAUNCHES["phase_cumsum"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
 # star sweep + star tables
 # --------------------------------------------------------------------------
 
-def star_tables_mega_plain(ndx, stop_val, kind4, edge, cs, rsc, usc, st_wt,
-                           relk, max_overlap):
-    """Plain version of `star_tables_mega`: the same sweep, vectorised over
-    (row, node), one step per shift."""
+def star_tables_plain(ndx, stop_val, kind4, edge, cs, rsc, usc, st_wt,
+                      relk, max_overlap):
+    """Plain version of `star_tables`: the same sweep, vectorised over
+    (row, node), one step per shift; geometry rows broadcast."""
     B, NT = cs.shape
     dev = cs.device
-    ndx, sv, kind = ndx[0], stop_val[0], kind4[0] & 7
-    edgeb = edge[0] != 0
+    sv, kind = stop_val, kind4 & 7
+    edgeb = edge != 0
     strand = torch.where(kind < 2, 1, -1).to(torch.int32)
     fstop = (kind == 1) & ~edgeb
     rstop = (kind == 3) & ~edgeb
@@ -123,48 +150,54 @@ def star_tables_mega_plain(ndx, stop_val, kind4, edge, cs, rsc, usc, st_wt,
         runmax = torch.where(upd, sc, runmax)
 
     sp = torch.stack(ptr)                                  # (3, B, NT)
+
+    def at(a, q):
+        return a.expand(B, -1).gather(1, q)
+
     opv1, val3, t_sv, t_ndx = [], [], [], []
     for f in range(3):
         okm = sp[f] != -1
         q = sp[f].clamp(min=0).long()
-        gn = ndx[q]
-        gc = cs.gather(1, q)
-        gr = rsc.gather(1, q)
-        gu = usc.gather(1, q)
-        gs = torch.where(kind[q] < 2, 1, -1)
+        gn = at(ndx, q)
+        gc, gr, gu = (at(a, q) for a in (cs, rsc, usc))
+        gs = torch.where(at(kind, q) < 2, 1, -1)
         neg = torch.full_like(gc, NEG)
         opv1.append(torch.where(okm, gc + igm_same(
             ndx, strand, rsc, usc, gn, gr, gu, stw), neg))
         val3.append(torch.where(okm, gc + igm_same(
             gn, gs, gr, gu, ndx, rsc, usc, stw), neg))
-        t_sv.append(torch.where(okm, sv[q], T_SV_NONE).to(torch.int32))
+        t_sv.append(torch.where(okm, at(sv, q), T_SV_NONE).to(torch.int32))
         t_ndx.append(torch.where(okm, gn, 0).to(torch.int32))
     return (sp, torch.stack(opv1), torch.stack(val3), torch.stack(t_sv),
             torch.stack(t_ndx))
 
 
-def star_tables_mega(ndx, stop_val, kind4, edge, cs, rsc, usc, st_wt,
-                     relk, max_overlap):
-    """One-geometry star sweep + tables.
+def star_tables(ndx, stop_val, kind4, edge, cs, rsc, usc, st_wt, relk,
+                max_overlap):
+    """Star sweep + tables.
 
-    ndx/stop_val/kind4/edge: (1, NT) int32 geometry rows; cs (= cscore +
-    sscore), rsc, usc: (B, NT) f32; st_wt: (B,) f32.  Returns star_ptr,
+    ndx/stop_val/kind4/edge: int32 geometry rows, (1, NT) shared by every
+    bin row (mega route) or (B, NT), one per row (std route); cs (= cscore
+    + sscore), rsc, usc: (B, NT) f32; st_wt: (B,) f32.  Returns star_ptr,
     opv1, val3, t_sv, t_ndx, each stacked over the three frames as
     (3, B, NT) -- the JAX wrapper's lists, stacked."""
     if not cs.is_cuda:
-        return star_tables_mega_plain(ndx, stop_val, kind4, edge, cs, rsc,
-                                      usc, st_wt, relk, max_overlap)
+        return star_tables_plain(ndx, stop_val, kind4, edge, cs, rsc, usc,
+                                 st_wt, relk, max_overlap)
     B, NT = cs.shape
+    R = ndx.shape[0]
+    if R not in (1, B):
+        raise ValueError(f"star_tables: {R} geometry rows for {B} rows")
     for t, name in ((ndx, "ndx"), (stop_val, "stop_val"), (kind4, "kind4"),
                     (edge, "edge")):
-        _check(t, torch.int32, (1, NT), name)
+        _check(t, torch.int32, (R, NT), name)
     for t, name in ((cs, "cs"), (rsc, "rsc"), (usc, "usc")):
         _check(t, torch.float32, (B, NT), name)
     _check(st_wt, torch.float32, (B,), "st_wt")
     dev = cs.device
     if any(t.device != dev for t in (ndx, stop_val, kind4, edge, rsc, usc,
                                      st_wt)):
-        raise ValueError("star_tables_mega: operands on different devices")
+        raise ValueError("star_tables: operands on different devices")
     sp = torch.empty((3, B, NT), dtype=torch.int32, device=dev)
     opv1 = torch.empty((3, B, NT), dtype=torch.float32, device=dev)
     val3 = torch.empty((3, B, NT), dtype=torch.float32, device=dev)
@@ -176,6 +209,6 @@ def star_tables_mega(ndx, stop_val, kind4, edge, cs, rsc, usc, st_wt,
         edge.data_ptr(), cs.data_ptr(), rsc.data_ptr(), usc.data_ptr(),
         st_wt.data_ptr(), sp.data_ptr(), opv1.data_ptr(), val3.data_ptr(),
         t_sv.data_ptr(), t_ndx.data_ptr(), B, NT, relk, max_overlap,
-        _stream(dev)), "star")
+        0 if R == 1 else NT, _stream(dev)), "star")
     LAUNCHES["star"] += 1
     return sp, opv1, val3, t_sv, t_ndx

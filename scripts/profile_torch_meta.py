@@ -3,22 +3,26 @@
 
     python3 scripts/profile_torch_meta.py [--out FILE]
 
-On one CUDA device, over the four bench contigs (`bench.py` WORKLOAD, one
-replica each):
+On one CUDA device, for each of two contig sets -- "bench", the four
+bench contigs (`bench.py` WORKLOAD, one replica each; the mega route),
+and "short", `chip_smoke.py`'s short-contig set (the genome cut into ~500
+contigs of lognormal length, plus KK037166; the std route):
 
 1. warm passes: one untimed `GeneFinder(meta=True,
    backend="cuda").find_genes_batch`, then PASSES timed ones (wall,
    median, Mbp/s);
 2. stage replay, each stage alone with a synchronize around it: host prep
    (`_prepare_contig`) per contig on one thread and on the runner's pool,
-   each `_group_mega` launch (`_sweep_mega_multi`: scoring, star, DP,
-   pull), and the exact-C finishing (`_produce_winner`) per contig;
+   each launch as the runner packs it (`_sweep_mega_multi` per
+   `_group_mega` group, `_sweep_std` per `_pack_std` launch: scoring,
+   star, DP, pull), and the exact-C finishing (`_produce_winner`) per
+   contig;
 3. one warm pass under `torch.profiler` (CPU and CUDA activity): device
    time by kernel name (`key_averages()`, self device time; the TOP
    largest), the total, and the device's busy share of that pass.
 
-Prints one line per part and, last, the whole record as one JSON line;
-`--out` also writes that record to a file.  Imports no jax.
+Prints one line per part and set and, last, the whole record as one JSON
+line; `--out` also writes that record to a file.  Imports no jax.
 """
 
 import argparse
@@ -30,13 +34,6 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-DATA = os.path.join(ROOT, "tests", "data")
-CONTIGS = [                                   # bench.py WORKLOAD
-    "GCF_001457455.1_NCTC11397_genomic.fna.gz",
-    "MIIJ01000039.fna.gz",
-    "GCF_001457455.1_NCTC11397_genomic_100kb.fna.gz",
-    "SRR492066.fna.gz",
-]
 PASSES = 5
 TOP = 12
 
@@ -78,17 +75,22 @@ def stage_replay(runner, seqs):
     _, prep_pool = _sync_time(
         lambda: list(runner.pool.map(runner._prepare_contig, contigs)))
 
-    items = []
+    mega_items, std_items = [], []
     for ci, (cand, geoms, _nbt, route) in enumerate(preps):
         assert route != "c", route
+        if not cand:
+            continue
+        if route == "std":
+            std_items.append((ci, cand, geoms))
+            continue
         by_tt = {}
         for b in cand:
             by_tt.setdefault(runner.bins[b].training_info.translation_table,
                              []).append(b)
-        items += [{"ci": ci, "g": geoms[tt], "rows": bs}
-                  for tt, bs in by_tt.items()]
+        mega_items += [{"ci": ci, "g": geoms[tt], "rows": bs}
+                       for tt, bs in by_tt.items()]
     launches, cands = [], {}
-    for gr in runner._group_mega(items):
+    for gr in runner._group_mega(mega_items):
         (bests, rows, CP, B), dt = _sync_time(
             lambda: runner._sweep_mega_multi(gr["items"]))
         pos = {b: i for i, b in enumerate(rows)}
@@ -96,18 +98,41 @@ def stage_replay(runner, seqs):
             cands.setdefault(it["ci"], []).extend(
                 (b, float(bests[k, pos[b]])) for b in it["rows"])
         launches.append({
+            "route": "mega",
             "contigs": sorted({it["ci"] for it in gr["items"]}),
             "rows": len(rows), "B": B, "CP": CP,
             "nodes": sum(it["g"]["nn"] for it in gr["items"]),
             "s": dt})
+    for L in runner._pack_std(std_items):
+        bests, dt = _sync_time(
+            lambda: runner._sweep_std(L["work"], L["geoms"]))
+        for k, (ci, b, _key) in enumerate(L["work"]):
+            cands.setdefault(ci, []).append((b, float(bests[k])))
+        launches.append({
+            "route": "std",
+            "contigs": sorted({ci for ci, _b, _key in L["work"]}),
+            "rows": len(L["work"]), "geoms": len(L["geoms"]),
+            "nodes_max": max(g["nn"] for g in L["geoms"].values()),
+            "s": dt})
 
     finishing = []
-    for ci, seq in enumerate(contigs):
+    for ci, cs in cands.items():
         _, dt = _sync_time(lambda: runner._produce_winner(
-            seq, ci + 1, cands[ci], preps[ci][2]))
+            contigs[ci], ci + 1, cs, preps[ci][2]))
         finishing.append(dt)
     return {"prep_one_thread_s": prep_one, "prep_pool_s": prep_pool,
             "launches": launches, "finishing_s": finishing}
+
+
+def _launch_summary(launches):
+    parts = []
+    for route in ("mega", "std"):
+        ls = [g for g in launches if g["route"] == route]
+        if ls:
+            t = [g["s"] for g in ls]
+            parts.append(f"{route} {len(ls)} launches, {sum(t)} s (mean "
+                         f"{statistics.mean(t)}, max {max(t)})")
+    return "; ".join(parts)
 
 
 def profiled_pass(finder, seqs, top):
@@ -127,6 +152,33 @@ def profiled_pass(finder, seqs, top):
                         for k, n, ms in rows[:top]]}
 
 
+def profile_set(finder, runner, seqs):
+    total_bp = sum(len(s) for s in seqs)
+    walls = warm_passes(finder, seqs, PASSES)
+    med = statistics.median(walls)
+    print(f"  warm passes: {walls}; median {med} s, "
+          f"{total_bp / med / 1e6} Mbp/s ({len(seqs)} contigs, {total_bp} "
+          f"bp)", flush=True)
+    replay = stage_replay(runner, seqs)
+    print(f"  stage replay: prep one thread sum "
+          f"{sum(replay['prep_one_thread_s'])} s, pool "
+          f"{replay['prep_pool_s']} s; "
+          f"{_launch_summary(replay['launches'])}; finishing sum "
+          f"{sum(replay['finishing_s'])} s over "
+          f"{len(replay['finishing_s'])} contigs (max "
+          f"{max(replay['finishing_s'], default=0.0)})", flush=True)
+    prof = profiled_pass(finder, seqs, TOP)
+    print(f"  profiled pass: wall {prof['wall_s']} s, device "
+          f"{prof['device_ms']} ms, busy {prof['busy']}", flush=True)
+    for k in prof["kernels"]:
+        print(f"  {k['self_device_ms']:10.3f} ms {k['calls']:5d}x "
+              f"{k['name'][:100]}")
+    return {"total_bp": total_bp, "contigs": len(seqs),
+            "warm_walls_s": walls, "warm_median_s": med,
+            "mbps": total_bp / med / 1e6, "replay": replay,
+            "profile": prof}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the JSON record here")
@@ -138,45 +190,27 @@ def main():
         print("profile_torch_meta: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    import chip_smoke
     import pyrodigal_tpu_torch
-    from pyrodigal_tpu.fasta import parse
 
-    seqs = [r.seq for name in CONTIGS
-            for r in parse(os.path.join(DATA, name))]
-    total_bp = sum(len(s) for s in seqs)
-    finder = pyrodigal_tpu_torch.GeneFinder(meta=True, backend="cuda")
-    runner = finder._get_meta_runner()
-
-    walls = warm_passes(finder, seqs, PASSES)
-    med = statistics.median(walls)
-    print(f"warm passes: {walls}; median {med} s, "
-          f"{total_bp / med / 1e6} Mbp/s ({total_bp} bp)", flush=True)
-
-    replay = stage_replay(runner, seqs)
-    print(f"stage replay: prep one thread {replay['prep_one_thread_s']} s "
-          f"(sum {sum(replay['prep_one_thread_s'])}), pool "
-          f"{replay['prep_pool_s']} s; launches "
-          + "; ".join(f"contigs {g['contigs']} B {g['B']} nodes "
-                      f"{g['nodes']}: {g['s']} s"
-                      for g in replay["launches"])
-          + f"; finishing {replay['finishing_s']} s (sum "
-          f"{sum(replay['finishing_s'])})", flush=True)
-
-    prof = profiled_pass(finder, seqs, TOP)
-    print(f"profiled pass: wall {prof['wall_s']} s, device "
-          f"{prof['device_ms']} ms, busy {prof['busy']}", flush=True)
-    for k in prof["kernels"]:
-        print(f"  {k['self_device_ms']:10.3f} ms {k['calls']:5d}x "
-              f"{k['name'][:100]}")
-    runner.close()
+    sets = {
+        "bench": [r.seq for name in chip_smoke.CONTIGS
+                  for r in chip_smoke._records(name)],
+        "short": [s for _n, s in chip_smoke.short_contigs()],
+    }
+    record = {}
+    for name, seqs in sets.items():
+        print(f"{name}:", flush=True)
+        finder = pyrodigal_tpu_torch.GeneFinder(meta=True, backend="cuda")
+        runner = finder._get_meta_runner()
+        record[name] = profile_set(finder, runner, seqs)
+        runner.close()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    record = {"device": smi, "total_bp": total_bp, "warm_walls_s": walls,
-              "warm_median_s": med, "mbps": total_bp / med / 1e6,
-              "replay": replay, "profile": prof}
+    record["device"] = smi
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported: the port must run without it")
     if args.out:

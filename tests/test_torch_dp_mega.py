@@ -66,13 +66,12 @@ def _dp_inputs(runner, contigs, packed_layout):
                              torch.from_numpy(bins), is_meta=True,
                              closed=False,
                              has_nonsd=runner.tables.any_nonsd)
-    kind4, *_ = dp_cuda.mega_geometry(ndx, stop_val, typ, strand, valid,
-                                      packed_layout)
+    kind4, *_ = dp_cuda.mega_geometry(ndx[0], stop_val[0], typ[0],
+                                      strand[0], valid[0], packed_layout)
     cs = cscore + ssc
-    sp, *tables = star_cuda.star_tables_mega(
-        ndx[None], stop_val[None], kind4[None], edge[None], cs, rsc, usc,
-        stw, 32, 60)
-    geometry = [a[None].expand(B, -1).numpy() for a in
+    sp, *tables = star_cuda.star_tables(
+        ndx, stop_val, kind4[None], edge, cs, rsc, usc, stw, 32, 60)
+    geometry = [a.expand(B, -1).numpy() for a in
                 (ndx, stop_val, typ, strand, win_lo, valid)]
     return {"geometry": geometry,
             "scores": [a.numpy() for a in (cs, rsc, usc)],

@@ -1,7 +1,9 @@
 """The port's meta-mode runner on the CPU (plain versions of the kernels)
 against the exact C engine: winner bins and gene data byte-equal, as the
-JAX package's mega-route tests in tests/test_meta.py; and its per-(contig,
-bin) best path scores against the JAX package's mega launch."""
+JAX package's runner tests in tests/test_meta.py, on the std route and
+(with the sequence bucket shrunk, as those tests shrink it) the mega
+route; and its per-(contig, bin) best path scores against the JAX
+package's std and mega launches."""
 
 import numpy as np
 import pytest
@@ -11,6 +13,7 @@ torch = pytest.importorskip("torch")
 from pyrodigal_tpu import GeneFinder, MetagenomicBins, METAGENOMIC_BINS  # noqa: E402,E501
 from pyrodigal_tpu.fasta import parse  # noqa: E402
 from pyrodigal_tpu.sequence import Sequence  # noqa: E402
+from pyrodigal_tpu_torch.ops import meta_cuda  # noqa: E402
 from pyrodigal_tpu_torch.ops.meta_cuda import CudaMetaRunner  # noqa: E402
 
 needs_bins = pytest.mark.skipif(
@@ -33,6 +36,13 @@ def _runner(bins=METAGENOMIC_BINS, cls=CudaMetaRunner, **kw):
     return cls(bins, device="cpu", **kw)
 
 
+@pytest.fixture
+def mega_only(monkeypatch):
+    """Send every contig longer than 2,048 bp down the mega route, as the
+    JAX package's mega tests pass seq_bucket=2048."""
+    monkeypatch.setattr(meta_cuda, "SEQ_BUCKET", 2048)
+
+
 def _assert_same_genes(a, b):
     assert len(a) == len(b)
     assert [(g.begin, g.end, g.strand) for g in b] == \
@@ -47,39 +57,39 @@ def _packed_contigs(data):
 
 
 @needs_bins
-def test_mega_route_matches_c_path(data):
+def test_mega_route_matches_c_path(data, mega_only):
     seq = list(parse(data("SRR492066.fna.gz")))[0].seq[:30000]
     a = GeneFinder(meta=True, backend="refcore").find_genes(seq)
     runner = _runner()
     b = runner.find_genes_batch([seq])[0]
-    # a std-route contig in the JAX package, on the mega route here
-    assert runner.route_counts == {"std": 1, "mega": 0, "c": 0}
+    assert runner.route_counts == {"std": 0, "mega": 1, "c": 0}
     assert b.metagenomic_bin.description == a.metagenomic_bin.description
     _assert_same_genes(a, b)
 
 
 @needs_bins
 @pytest.mark.parametrize("closed,mask", [(True, False), (False, True)])
-def test_mega_route_closed_mask(data, closed, mask):
+def test_mega_route_closed_mask(data, closed, mask, mega_only):
     seq = list(parse(data("SRR492066.fna.gz")))[0].seq[:24000]
     if mask:
         seq = seq[:9000] + "N" * 120 + seq[9000:]
     a = GeneFinder(meta=True, closed=closed, mask=mask,
                    backend="refcore").find_genes(seq)
-    b = _runner(closed=closed,
-                mask=mask).find_genes_batch([seq])[0]
+    runner = _runner(closed=closed, mask=mask)
+    b = runner.find_genes_batch([seq])[0]
+    assert runner.route_counts["mega"] == 1
     assert b.metagenomic_bin.description == a.metagenomic_bin.description
     _assert_same_genes(a, b)
 
 
 @needs_bins
-def test_mega_route_packed_multi_contig(data):
+def test_mega_route_packed_multi_contig(data, mega_only):
     contigs = _packed_contigs(data)
     p = GeneFinder(meta=True, backend="refcore")
     expected = [p.find_genes(c) for c in contigs]
     runner = _runner()
     got = runner.find_genes_batch(contigs)
-    assert runner.route_counts == {"std": 3, "mega": 0, "c": 0}
+    assert runner.route_counts == {"std": 0, "mega": 3, "c": 0}
     items = []
     for i, c in enumerate(contigs):
         seq = Sequence(c)
@@ -95,7 +105,7 @@ def test_mega_route_packed_multi_contig(data):
 
 
 @needs_bins
-def test_mega_route_fxs_rescale(data):
+def test_mega_route_fxs_rescale(data, mega_only):
     """Past MEGA_FXS_LIMIT the DP runs at FXS=1024; forcing that on a
     small contig must still give the exact C path's genes."""
     seq = list(parse(data("SRR492066.fna.gz")))[0].seq[:30000]
@@ -104,7 +114,9 @@ def test_mega_route_fxs_rescale(data):
     class _HalfFXS(CudaMetaRunner):
         MEGA_FXS_LIMIT = 1
 
-    b = _runner(cls=_HalfFXS).find_genes_batch([seq])[0]
+    runner = _runner(cls=_HalfFXS)
+    b = runner.find_genes_batch([seq])[0]
+    assert runner.route_counts["mega"] == 1
     assert b.metagenomic_bin.description == a.metagenomic_bin.description
     _assert_same_genes(a, b)
 
@@ -124,16 +136,18 @@ def test_bin_near_tie_exact_arbitration(data):
             self.training_info = ti
 
     bins = MetagenomicBins((chosen, _Clone(chosen.training_info)))
-    b = _runner(bins).find_genes_batch([seq])[0]
+    runner = _runner(bins)
+    b = runner.find_genes_batch([seq])[0]
+    assert runner.route_counts["std"] == 1
     assert b.metagenomic_bin.description == chosen.description
     _assert_same_genes(full, b)
 
 
 @needs_bins
-def test_short_contigs_ride_the_mega_route(data):
-    """Contigs the JAX package sends down its std route (empty, all-N,
-    shorter than a gene, 4 kb) take the mega route here, packed together,
-    and keep their order and num_seq."""
+def test_short_contigs_take_the_std_route(data):
+    """Short contigs (empty, all-N, shorter than a gene, 4 kb) take the
+    std route, packed into one launch, and keep their order and
+    num_seq."""
     base = list(parse(data("SRR492066.fna.gz")))[0].seq
     seqs = []
     for k in range(12):
@@ -199,4 +213,155 @@ def test_best_scores_match_jax_mega_launch(data):
             diff = abs(float(p_best[k, r]) - ref)
             assert diff <= 0.1 * CudaMetaRunner._margin(ref), (k, b)
             worst = max(worst, diff / abs(ref))
+    assert worst < 1e-4
+
+
+@needs_bins
+def test_std_route_matches_c_path(data):
+    """Port of test_tpu_meta_runner_matches_c_path: two short contigs in
+    one std launch give the exact C path's winner bins and gene data."""
+    seqs = [list(parse(data("KK037166.fna.gz")))[0].seq,
+            list(parse(data("SRR492066.fna.gz")))[0].seq[:30000]]
+    p = GeneFinder(meta=True, backend="refcore")
+    anchor = [p.find_genes(s) for s in seqs]
+    runner = _runner()
+    batched = runner.find_genes_batch(seqs)
+    assert runner.route_counts == {"std": 2, "mega": 0, "c": 0}
+    for a, b in zip(anchor, batched):
+        assert b.metagenomic_bin.description == a.metagenomic_bin.description
+        _assert_same_genes(a, b)
+
+
+@needs_bins
+@pytest.mark.parametrize("closed,mask", [(True, False), (False, True)])
+def test_std_route_closed_mask(data, closed, mask):
+    seq = list(parse(data("SRR492066.fna.gz")))[0].seq[:30000]
+    if mask:
+        seq = seq[:12000] + "N" * 120 + seq[12000:]
+    a = GeneFinder(meta=True, closed=closed, mask=mask,
+                   backend="refcore").find_genes(seq)
+    runner = _runner(closed=closed, mask=mask)
+    b = runner.find_genes_batch([seq])[0]
+    assert runner.route_counts["std"] == 1
+    assert b.metagenomic_bin.description == a.metagenomic_bin.description
+    _assert_same_genes(a, b)
+
+
+@needs_bins
+@pytest.mark.parametrize("kw", [
+    dict(min_gene=60, min_edge_gene=30, max_overlap=30),
+    dict(min_gene=120, max_overlap=40),
+    dict(max_overlap=0),
+])
+def test_std_route_option_variants(data, kw):
+    seq = list(parse(data("SRR492066.fna.gz")))[0].seq[:24000]
+    a = GeneFinder(meta=True, backend="refcore", **kw).find_genes(seq)
+    runner = _runner(**kw)
+    b = runner.find_genes_batch([seq])[0]
+    assert runner.route_counts["std"] == 1
+    assert b.metagenomic_bin.description == a.metagenomic_bin.description
+    _assert_same_genes(a, b)
+
+
+@needs_bins
+def test_many_tiny_contigs_batch(data):
+    """Many tiny or odd contigs (empty, all-N, short, normal) over several
+    std launches keep launch packing, row mapping and num_seq straight."""
+    base = list(parse(data("SRR492066.fna.gz")))[0].seq
+    seqs = []
+    for k in range(40):
+        if k % 7 == 0:
+            seqs.append("")
+        elif k % 7 == 1:
+            seqs.append("N" * 500)
+        elif k % 7 == 2:
+            seqs.append(base[:90])
+        else:
+            seqs.append(base[(k * 997) % 20000:][:4000])
+    p = GeneFinder(meta=True, backend="refcore")
+    anchor = [p.find_genes(s) for s in seqs]
+    runner = _runner()
+    items = []
+    for ci, s in enumerate(seqs):
+        cand, geoms, _nbt, _route = runner._prepare_contig(Sequence(s))
+        if cand:
+            items.append((ci, cand, geoms))
+    assert len(runner._pack_std(items)) >= 2
+    outs = runner.find_genes_batch(seqs, num_seq_start=1)
+    assert runner.route_counts == {"std": len(seqs), "mega": 0, "c": 0}
+    assert len(outs) == len(seqs)
+    for i, (a, b) in enumerate(zip(anchor, outs)):
+        _assert_same_genes(a, b)
+        assert b._num_seq == i + 1
+
+
+@needs_bins
+def test_runner_thread_reentrancy(data):
+    """Concurrent find_genes_batch calls share the runner (its pools and
+    the refcore entry points are state-free) and give the same genes."""
+    import concurrent.futures
+
+    seqs = [list(parse(data("SRR492066.fna.gz")))[0].seq[:15000],
+            list(parse(data("KK037166.fna.gz")))[0].seq]
+    runner = _runner()
+    ref = runner.find_genes_batch(seqs)
+    with concurrent.futures.ThreadPoolExecutor(4) as ex:
+        outs = list(ex.map(lambda _: runner.find_genes_batch(seqs),
+                           range(4)))
+    assert runner.route_counts == {"std": 10, "mega": 0, "c": 0}
+    for out in outs:
+        for a, b in zip(ref, out):
+            _assert_same_genes(a, b)
+
+
+@needs_bins
+def test_std_contig_skips_the_mega_check(data, monkeypatch):
+    """A short contig whose geometry fits the std buckets takes the std
+    route whatever the mega kernel's own checks say: the JAX package runs
+    `_mega_ok` on mega-route contigs only (meta_tpu.py:197-203)."""
+    monkeypatch.setattr(CudaMetaRunner, "_mega_ok", lambda self, g: False)
+    seq = list(parse(data("SRR492066.fna.gz")))[0].seq[:20000]
+    a = GeneFinder(meta=True, backend="refcore").find_genes(seq)
+    runner = _runner()
+    b = runner.find_genes_batch([seq])[0]
+    assert runner.route_counts == {"std": 1, "mega": 0, "c": 0}
+    assert b.metagenomic_bin.description == a.metagenomic_bin.description
+    _assert_same_genes(a, b)
+
+
+@needs_bins
+def test_best_scores_match_jax_std_launch(data):
+    """Per-(contig, bin) best path scores of one std launch against the
+    JAX package's `score_dp_launch_packed(interpret=True)` on the same
+    work items (KK037166 and the first 24,000 bp of SRR492066, eight bins
+    of each).  The dc prefix sums round differently (see
+    test_torch_score), which moves path scores by a few 1e-6 relative;
+    the bar is a tenth of the exact engine's `_margin`."""
+    pytest.importorskip("jax")
+    from pyrodigal_tpu.ops.meta_tpu import TpuMetaRunner
+
+    seqs = [list(parse(data("KK037166.fna.gz")))[0].seq,
+            list(parse(data("SRR492066.fna.gz")))[0].seq[:24000]]
+    jr = TpuMetaRunner(METAGENOMIC_BINS, node_bucket=1536, batch_size=16,
+                       seq_bucket=24576, interpret=True)
+    pr = _runner()
+    items = []
+    for ci, s in enumerate(seqs):
+        cand, geoms, _nbt, route = pr._prepare_contig(Sequence(s))
+        assert route == "std"
+        items.append((ci, cand[:8], geoms))
+    (launch,) = pr._pack_std(items)
+    work, geoms = launch["work"], launch["geoms"]
+    assert len(work) == 16 and len(geoms) >= 2
+    j_best = np.asarray(jr._sweep(work, geoms, {0: 0, 1: 1})).view(
+        np.float32)
+    p_best = pr._sweep_std(work, geoms)
+    assert p_best.shape == (16,)
+    worst = 0.0
+    for k in range(len(work)):
+        ref = float(j_best[k])
+        assert ref > 0
+        diff = abs(float(p_best[k]) - ref)
+        assert diff <= 0.1 * CudaMetaRunner._margin(ref), work[k]
+        worst = max(worst, diff / abs(ref))
     assert worst < 1e-4

@@ -1,5 +1,8 @@
 """Port scoring (`score_device.score_only`) against the JAX package's,
-field by field, on the 24,576 bp slice of tests/test_meta.py."""
+field by field: one shared geometry (the mega route's layout, the 24,576
+bp slice of tests/test_meta.py), and two stacked geometries with one
+(contig, bin) per row picked by `gidx` (the std route's layout:
+KK037166 and the first 24,000 bp of SRR492066)."""
 
 import math
 
@@ -39,32 +42,59 @@ FIELDS = ("ndx", "stop_val", "typ", "strand", "win_lo", "valid", "cscore",
 U = 2.0 ** -24
 
 
-@pytest.fixture(scope="module")
-def scored(data):
+def _shared(runner, data):
     seq = Sequence(list(parse(data("SRR492066.fna.gz")))[0].seq[:24576])
-    runner = TpuMetaRunner(METAGENOMIC_BINS, interpret=True)
     cand, geoms, _nbt, _route = runner._prepare_contig(seq)
     g = geoms[list(geoms)[0]]
     NT = 2048 * ((g["nn"] + 2047) // 2048)
     SB = ((seq.slen + 196607) // 196608) * 196608
     packed = jsd.pack_geometries([g], 1, NT, SB)
-    BT = 16
-    bin_idx = np.zeros(BT, np.int32)
-    bin_idx[:len(cand[:BT])] = cand[:BT]
+    bin_idx = np.zeros(16, np.int32)
+    bin_idx[:len(cand[:16])] = cand[:16]
+    return packed, bin_idx, None, SB
+
+
+def _per_item(runner, data):
+    """Two geometries (translation table 11), eight bins of each."""
+    seqs = [list(parse(data("KK037166.fna.gz")))[0].seq,
+            list(parse(data("SRR492066.fna.gz")))[0].seq[:24000]]
+    geoms, bins, gidx = [], [], []
+    for s in seqs:
+        cand, gs, _nbt, route = runner._prepare_contig(Sequence(s))
+        assert route == "std"
+        rows = [b for b in cand
+                if runner.bins[b].training_info.translation_table == 11][:8]
+        bins += rows
+        gidx += [len(geoms)] * len(rows)
+        geoms.append(gs[11])
+    packed = jsd.pack_geometries(geoms, 2, 1536, 24576)
+    return (packed, np.array(bins, np.int32), np.array(gidx, np.int32),
+            24576)
+
+
+@pytest.fixture(scope="module", params=["shared", "per_item"])
+def scored(request, data):
+    runner = TpuMetaRunner(METAGENOMIC_BINS, interpret=True)
+    packed, bin_idx, gidx, S = (_shared if request.param == "shared"
+                                else _per_item)(runner, data)
+    BT = len(bin_idx)
     arrays = tuple(np.asarray(a) for a in runner.tables.as_tuple())
     nonsd = runner.tables.any_nonsd
     ref = jsd.score_only(
         runner.tables.as_tuple(), {k: jnp.asarray(v) for k, v in
                                    packed.items()},
-        jnp.asarray(bin_idx), jnp.zeros(BT, jnp.int32), is_meta=True,
-        closed=False, S3=SB // 3, has_nonsd=nonsd, relk=32, max_overlap=60)
+        jnp.asarray(bin_idx),
+        jnp.zeros(BT, jnp.int32) if gidx is None else jnp.asarray(gidx),
+        is_meta=True, closed=False, S3=S // 3, has_nonsd=nonsd, relk=32,
+        max_overlap=60)
     ref = [np.asarray(a) for a in ref]
     tables = tsd.BinTables.from_numpy(arrays)
     geo = tsd.to_device(packed, "cpu")
     bins = torch.from_numpy(bin_idx.astype(np.int64))
-    got = tsd.score_only(tables.as_tuple(), geo, bins, is_meta=True,
+    rows = None if gidx is None else torch.from_numpy(gidx.astype(np.int64))
+    got = tsd.score_only(tables.as_tuple(), geo, bins, rows, is_meta=True,
                          closed=False, has_nonsd=nonsd)
-    return ref, [a.numpy() for a in got], tables, geo, bins
+    return ref, [a.numpy() for a in got], tables, geo, bins, rows
 
 
 @needs_bins
@@ -83,13 +113,15 @@ def test_cscore_within_prefix_sum_rounding(scored):
     with a log-depth scan of K terms (error <= 2 log2(K) u sum|x|), the
     port in f64 rounded once (u |C|); exp/log1p of the length factor add
     f32 ulps (rtol 1e-5)."""
-    ref, got, tables, geo, bins = scored
-    m6f, m6r = tsd._derive_m6(geo)
+    ref, got, tables, geo, bins, rows = scored
     dc = tables.gene_dc[bins].double()
-    S = m6f.shape[0]
+    S = geo["digits"].shape[1]
     K = math.ceil(S / 3)
-    sum_abs = max(float(dc[:, m.long()].abs().reshape(len(bins), -1, 3)
-                        .sum(1).max()) for m in (m6f, m6r))
+    sum_abs = 0.0
+    for m6 in tsd._derive_m6(geo):
+        codes = m6.expand(len(bins), -1) if rows is None else m6[rows]
+        sum_abs = max(sum_abs, float(dc.gather(1, codes.long()).abs()
+                                     .reshape(len(bins), -1, 3).sum(1).max()))
     d = (2 * math.log2(K) + 1) * U * sum_abs
     cs_ref, cs_got = ref[6], got[6]
     assert cs_got.shape == cs_ref.shape
@@ -111,13 +143,14 @@ def test_start_scores_close(scored):
 def test_star_pointers_from_port_scores_equal_reference(scored):
     """The reference's score_only also returns its XLA star pointers; the
     port's star sweep over the port's own scores lands on the same nodes
-    (integers: exact)."""
-    ref, got, tables, geo, bins = scored
+    (integers: exact).  A shared geometry goes to the sweep as one row."""
+    ref, got, tables, geo, bins, rows = scored
     ndx, sv, typ, strand, _wlo, valid, cscore, ssc, rsc, usc, edge, stw = (
         torch.from_numpy(np.ascontiguousarray(a)) for a in got)
-    kind4 = dp_cuda.mega_geometry(ndx[0], sv[0], typ[0], strand[0],
-                                  valid[0], False)[0]
-    sp = star_cuda.star_tables_mega(
-        ndx[0:1], sv[0:1], kind4[None], edge[0:1], cscore + ssc, rsc, usc,
-        stw, 32, 60)[0]
+    R = 1 if rows is None else len(bins)
+    kind4 = dp_cuda.kind4_of(typ, strand, valid)
+    sp = star_cuda.star_tables(
+        ndx[:R], sv[:R], kind4[:R], edge[:R], cscore + ssc, rsc, usc, stw,
+        32, 60)[0]
     assert np.array_equal(sp.numpy(), ref[10])
+    assert (sp != -1).sum() > 0

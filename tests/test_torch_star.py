@@ -1,5 +1,6 @@
-"""dc-chain prefix sums and the star sweep: the port's plain versions
-against the JAX reference (Pallas in interpret mode), and the CUDA
+"""dc-chain and phase prefix sums and the star sweep (one shared geometry
+row, and one geometry row per bin row): the port's plain versions against
+the JAX reference (Pallas in interpret mode, XLA on the CPU), and the CUDA
 kernels against the plain versions on a card."""
 
 import math
@@ -60,16 +61,82 @@ def inputs(data):
      stw) = tsd._score_items(runner.tables.as_tuple(), geo,
                              torch.from_numpy(bin_idx), is_meta=True,
                              closed=False, has_nonsd=runner.tables.any_nonsd)
-    kind4, *_ = dp_cuda.mega_geometry(ndx, stop_val, typ, strand, valid, True)
+    kind4 = dp_cuda.kind4_of(typ, strand, valid)
     m6f, m6r = tsd._derive_m6(geo)
     return {
         "packed": packed, "bin_idx": bin_idx,
         "table": runner.tables.gene_dc[torch.from_numpy(bin_idx)].numpy(),
-        "m6f": m6f.numpy(), "m6r": m6r.numpy(),
+        "m6f": m6f[0].numpy(), "m6r": m6r[0].numpy(),
         "star": tuple(a.numpy() for a in (
-            ndx[None], stop_val[None], kind4[None], edge[None],
-            cscore + ssc, rsc, usc, stw)),
+            ndx, stop_val, kind4, edge, cscore + ssc, rsc, usc, stw)),
     }
+
+
+def _per_row_geometries(runner, data):
+    """Two stacked geometries (KK037166 and the first 24,000 bp of
+    SRR492066, translation table 11) and eight bins of each, one
+    (contig, bin) per row: (packed, bin_idx, gidx), numpy."""
+    seqs = [list(parse(data("KK037166.fna.gz")))[0].seq,
+            list(parse(data("SRR492066.fna.gz")))[0].seq[:24000]]
+    geoms, bins, gidx = [], [], []
+    for s in seqs:
+        cand, gs, _nbt, route = runner._prepare_contig(Sequence(s))
+        assert route == "std"
+        rows = [b for b in cand
+                if runner.bins[b].training_info.translation_table == 11][:8]
+        bins += rows
+        gidx += [len(geoms)] * len(rows)
+        geoms.append(gs[11])
+    return (tsd.pack_geometries(geoms, 2, 1536, 24576),
+            np.array(bins, np.int32), np.array(gidx, np.int32))
+
+
+@pytest.fixture(scope="module")
+def per_row_inputs(data):
+    """Star inputs with one geometry row per bin row, scored by the port's
+    plain pipeline."""
+    runner = CudaMetaRunner(METAGENOMIC_BINS, device="cpu")
+    packed, bins, gidx = _per_row_geometries(runner, data)
+    (ndx, stop_val, typ, strand, _wlo, valid, edge, cscore, ssc, rsc, usc,
+     stw) = tsd._score_items(runner.tables.as_tuple(),
+                             tsd.to_device(packed, "cpu"),
+                             torch.from_numpy(bins.astype(np.int64)),
+                             torch.from_numpy(gidx.astype(np.int64)),
+                             is_meta=True, closed=False,
+                             has_nonsd=runner.tables.any_nonsd)
+    runner.close()
+    kind4 = dp_cuda.kind4_of(typ, strand, valid)
+    return {"star": tuple(a.numpy() for a in (
+        ndx, stop_val, kind4, edge, cscore + ssc, rsc, usc, stw))}
+
+
+@pytest.fixture(scope="module")
+def per_row_reference(data):
+    """The JAX package's `score_only` on two stacked geometries, one
+    (contig, bin) per row (KK037166 and the first 24,000 bp of SRR492066,
+    translation table 11, eight bins each): its scores and star
+    pointers, numpy."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from pyrodigal_tpu.ops import score_device as jsd
+    from pyrodigal_tpu.ops.meta_tpu import TpuMetaRunner
+
+    runner = TpuMetaRunner(METAGENOMIC_BINS, interpret=True)
+    packed, bins, gidx = _per_row_geometries(runner, data)
+    out = jsd.score_only(
+        runner.tables.as_tuple(),
+        {k: jnp.asarray(v) for k, v in packed.items()},
+        jnp.asarray(bins), jnp.asarray(gidx), is_meta=True, closed=False,
+        S3=24576 // 3, has_nonsd=runner.tables.any_nonsd, relk=32,
+        max_overlap=60)
+    runner.pool.shutdown()
+    (ndx, stop_val, typ, strand, _wlo, valid, cscore, ssc, rsc, usc, sp,
+     stw) = (np.array(a) for a in out)
+    edge = packed["n8"][2].astype(np.int32)[gidx]
+    kind4 = dp_cuda.kind4_of(*(torch.from_numpy(a) for a in (
+        typ, strand, valid))).numpy()
+    return {"star": (ndx, stop_val, kind4, edge, cscore + ssc, rsc, usc,
+                     stw), "star_ptr": sp}
 
 
 @pytest.fixture(scope="module")
@@ -130,11 +197,34 @@ def test_dc_prefix_sums_match_reference(inputs, strand):
 
 
 @needs_bins
+def test_phase_cumsum_plain_matches_reference():
+    """Plain phase prefix sums against the reference's
+    `phase_cumsum(interpret=True)` at (16, 6,144), on dc-score-sized
+    values from a seed.  Same sums in another order: the reference sums
+    each phase in float32 (error <= 2 log2(K) u sum|x| for any order),
+    the port in float64 rounded once (<= u |C|)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from pyrodigal_tpu.ops import star_pallas
+
+    x = np.random.default_rng(0).normal(0.0, 0.5, (16, 6144)) \
+        .astype(np.float32)
+    ref = np.asarray(star_pallas.phase_cumsum(jnp.asarray(x),
+                                              interpret=True))
+    got = star_cuda.phase_cumsum(_t(x)).numpy()
+    B, S = x.shape
+    cabs = np.abs(x.astype(np.float64)).reshape(B, -1, 3).cumsum(1) \
+        .reshape(B, S)
+    bound = (2 * math.log2(S / 3) + 1) * U * cabs + U * np.abs(ref)
+    assert got.dtype == np.float32 and got.shape == ref.shape
+    assert (np.abs(got.astype(np.float64) - ref) <= bound).all()
+
+
+@needs_bins
 def test_star_plain_matches_reference(inputs, star_reference):
     """Star pointers and integer tables exact; float tables to rtol 1e-6
     (tests/test_meta.py:444-447: XLA's fusion moves last ulps)."""
-    got = star_cuda.star_tables_mega(*(_t(a) for a in inputs["star"]),
-                                     32, 60)
+    got = star_cuda.star_tables(*(_t(a) for a in inputs["star"]), 32, 60)
     names = ("star_ptr", "opv1", "val3", "t_sv", "t_ndx")
     for name, a, b in zip(names, got, star_reference):
         a = a.numpy()
@@ -144,6 +234,16 @@ def test_star_plain_matches_reference(inputs, star_reference):
         else:
             assert np.allclose(a, b, rtol=1e-6, atol=1e-5), name
     assert (got[0] != -1).sum() > 0
+
+
+@needs_bins
+def test_per_row_star_plain_matches_reference(per_row_reference):
+    """Geometry rows per bin row, fed the reference's own scores: the
+    pointers equal those of the reference's XLA sweep (integers: exact)."""
+    ref = per_row_reference
+    sp = star_cuda.star_tables(*(_t(a) for a in ref["star"]), 32, 60)[0]
+    assert np.array_equal(sp.numpy(), ref["star_ptr"])
+    assert (sp != -1).sum() > 1000
 
 
 @pytest.mark.cuda
@@ -169,10 +269,34 @@ def test_dc_chain_kernel_matches_plain(inputs, cuda_device):
 
 @pytest.mark.cuda
 @needs_bins
-def test_star_kernel_matches_plain(inputs, cuda_device):
-    args = [_t(a, cuda_device) for a in inputs["star"]]
-    got = star_cuda.star_tables_mega(*args, 32, 60)
-    ref = star_cuda.star_tables_mega_plain(*args, 32, 60)
+def test_phase_cumsum_kernel_matches_plain(inputs, cuda_device):
+    """Kernel against plain on the card, per-row looked-up dc values of
+    the 30 kb geometry's two code rows: the same summation-depth bound as
+    dc-chain's."""
+    table = _t(inputs["table"], cuda_device)
+    before = star_cuda.LAUNCHES["phase_cumsum"]
+    for strand in ("m6f", "m6r"):
+        x = table[:, _t(inputs[strand], cuda_device).long()].contiguous()
+        got = star_cuda.phase_cumsum(x)
+        ref = star_cuda.phase_cumsum_plain(x)
+        torch.cuda.synchronize()
+        B, S = x.shape
+        cabs = x.double().abs().reshape(B, -1, 3).cumsum(1).reshape(B, S)
+        depth = 4 + 8 + math.ceil(S / 3 / 1024) + 1
+        bound = depth * U * cabs + U * ref.double().abs()
+        assert ((got.double() - ref.double()).abs() <= bound).all()
+    assert star_cuda.LAUNCHES["phase_cumsum"] == before + 2
+
+
+@pytest.mark.cuda
+@needs_bins
+@pytest.mark.parametrize("layout", ["shared", "per_row"])
+def test_star_kernel_matches_plain(inputs, per_row_inputs, layout,
+                                   cuda_device):
+    star = (inputs if layout == "shared" else per_row_inputs)["star"]
+    args = [_t(np.ascontiguousarray(a), cuda_device) for a in star]
+    got = star_cuda.star_tables(*args, 32, 60)
+    ref = star_cuda.star_tables_plain(*args, 32, 60)
     torch.cuda.synchronize()
     for a, b in zip(got, ref):
         if a.dtype == torch.int32:
