@@ -9,11 +9,16 @@ Phases, each printing one line:
    (one nvcc per source, in parallel; seconds, and registers / shared
    memory / spills per kernel);
 2. kernels: each kernel against its plain PyTorch version on the card, at
-   its path's shapes, timed with CUDA events.  Mega route: dc-chain (both
-   code rows) and star on the 2.46 Mbp genome, the mega DP on the 100 kb
-   contig.  Std route, on the first std launch of the short-contig set
-   (128 rows, 49,152 bp, 3,072 nodes): phase-cumsum (both code rows), star
-   with one geometry row per bin row, and the std DP;
+   its path's shapes, timed with CUDA events, beside its bound (bytes over
+   the HBM rate or operations over the f32 rate, the larger) and, for
+   phase-cumsum, `torch.cumsum` of the same function.  Mega route:
+   dc-chain (both code rows) and star on the 2.46 Mbp genome; the mega DP
+   timed there and held exactly equal to its twin on the 100 kb contig
+   and on a geometry with no valid node.  Std route, on the first std
+   launch of the short-contig set (128 rows, 49,152 bp, 3,072 nodes):
+   phase-cumsum (both code rows), star with one geometry row per bin row,
+   and the std DP, also exactly equal with 16 rows emptied and on a
+   launch of 40 kb genome slices whose windows reach 3 chunks of 640;
 3. end to end, `pyrodigal_tpu_torch.GeneFinder(meta=True,
    backend="cuda").find_genes_batch`, each path with the launch counters
    set to 0 just before it and read just after:
@@ -31,7 +36,8 @@ Phases, each printing one line:
 
 Then one JSON line of kernel records, the card's name and power limit,
 and, last, the result line.  Exits non-zero, with no result line, when
-no CUDA device is present or any phase fails.  Imports no jax.
+no CUDA device is present or any phase fails.  Imports neither jax nor
+the JAX package.
 """
 
 import concurrent.futures
@@ -58,6 +64,13 @@ U = 2.0 ** -24                                # f32 unit roundoff
 KERNELS = ("dc_chain", "phase_cumsum", "star", "dp_mega", "dp_std")
 MEGA_KERNELS = ("dc_chain", "star", "dp_mega")
 STD_KERNELS = ("phase_cumsum", "star", "dp_std")
+# published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
+# float32 operations/s outside the tensor cores
+HBM_BPS = 3.35e12
+F32_OPS = 67e12
+# operations per candidate a kernel evaluates (a modifier, a quantised
+# add, a compare): an estimate read off the kernels' inner loops
+LANE_OPS = 8
 
 
 def _time_ms(fn, reps):
@@ -76,8 +89,28 @@ def _time_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def _launch_ms(fn_name, tensors, dims, reps):
+    """Mean device milliseconds of a kernel's bare C launch (its wrapper's
+    checks and allocations left out: the std DP's wrapper synchronises to
+    check the windows), on preallocated outputs, after one warm-up."""
+    import torch
+
+    from pyrodigal_tpu_torch import _build
+
+    fn = getattr(_build.lib(), fn_name)
+    outs = [torch.empty(dims[:2], dtype=torch.int32, device="cuda:0")
+            for _ in range(4)]
+
+    def launch():
+        _build.check(fn(*(t.data_ptr() for t in tensors),
+                        *(o.data_ptr() for o in outs), *dims,
+                        torch.cuda.current_stream().cuda_stream), fn_name)
+
+    return _time_ms(launch, reps)
+
+
 def _records(path):
-    from pyrodigal_tpu.fasta import parse
+    from pyrodigal_tpu_torch.fasta import parse
 
     return list(parse(os.path.join(DATA, path)))
 
@@ -121,13 +154,108 @@ def _bound_check(name, got, ref, x_abs, depth):
     return float(err.max()), float((err / bound).max())
 
 
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(in_bytes, out_bytes, ops):
+    """The least time the card could take: the larger of the bytes moved
+    (each input read once, each output written once) over HBM_BPS and the
+    operations over F32_OPS; returns (ms, "bytes" or "operations")."""
+    t_bytes = (in_bytes + out_bytes) / HBM_BPS * 1e3
+    t_ops = ops / F32_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _record(name, source, replaces, shape, err, ms, plain_ms, bound,
+            library_ms=None, **extra):
+    bound_ms, bound_by = bound
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": None, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "roofline_share": bound_ms / ms, "shape": shape, **extra}
+
+
+def _prefix(mask):
+    """Counts of `mask` in [0, x) for x = 0 .. len, along the last axis."""
+    import numpy as np
+
+    z = np.zeros(mask.shape[:-1] + (1,), np.int64)
+    return np.concatenate([z, np.cumsum(mask, -1)], -1)
+
+
+def _mega_lanes(kind4, ndx, win_lo, ovlo, has_ov, tile_nn):
+    """Candidate sources the mega DP's rules admit, summed over the real
+    nodes of one geometry row (the JAX kernel's windows, data-dependent):
+    kind 0 the rev starts of its aligned window and the fwd stops of
+    [win_lo, i); kind 1 its two registers; kind 2 its register and the
+    fwd stops of its overlap window; kind 3 the kind 1-3 nodes of its
+    window."""
+    import numpy as np
+
+    k4, nd, wlo, olo, hov = (a.cpu().numpy().astype(np.int64)
+                             for a in (kind4, ndx, win_lo, ovlo, has_ov))
+    nn = tile_nn.cpu().numpy()
+    T = len(k4) // len(nn)
+    i = np.concatenate([np.arange(t * T, t * T + n) for t, n in
+                        enumerate(nn)]).astype(np.int64)
+    P = [_prefix(k4 == k) for k in (1, 2, 3)]
+    k, w = k4[i], wlo[i]
+    al = (i - 1024) // 128 * 128
+    lo0 = np.maximum(np.maximum(al, w), 0)
+    lo3 = np.maximum(np.maximum(i - 1024, w), 0)
+    base = i // T * T
+    al_s = np.minimum(np.maximum(olo[i] - base + 4 * 1024, 0) // 128 * 128,
+                      4 * 1024 + T - 384)
+    al2 = al_s - 4 * 1024 + base
+    lo2 = np.maximum(np.maximum(np.maximum(al2, olo[i]), w), 0)
+    hi2 = np.maximum(np.minimum(al2 + 384, i), lo2)
+    lanes = np.select(
+        [k == 0, k == 1, k == 2, k == 3],
+        [P[1][i] - P[1][lo0] + P[0][i] - P[0][w], np.full_like(i, 2),
+         1 + np.where(hov[i] != 0, P[0][hi2] - P[0][lo2], 0),
+         sum(p[i] - p[lo3] for p in P)])
+    return int(lanes.sum())
+
+
+def _std_lanes(kind4, ndx, win_lo):
+    """Candidate sources the std DP's rules admit, summed over the valid
+    nodes of every row: fwd start the fwd stops and rev starts of its
+    window, fwd stop the fwd starts of its frame and the fwd stops, rev
+    start the fwd stops and the rev stops of its frame, rev stop the
+    nodes of kinds 1-3."""
+    import numpy as np
+
+    k4, nd, wlo = (a.cpu().numpy().astype(np.int64)
+                   for a in (kind4, ndx, win_lo))
+    BT, n = k4.shape
+    fr = nd % 3
+    i = np.arange(n)[None].repeat(BT, 0)
+    lo = np.maximum(np.maximum(wlo, i - 3 * 640), 0)
+    rows = np.arange(BT)[:, None]
+
+    def cnt(mask):
+        P = _prefix(mask)
+        return np.maximum(P[rows, i] - P[rows, np.minimum(lo, i)], 0)
+
+    k1, k2 = cnt(k4 == 1), cnt(k4 == 2)
+    k0f = sum(np.where(fr == f, cnt((k4 == 0) & (fr == f)), 0)
+              for f in range(3))
+    k3f = sum(np.where(fr == f, cnt((k4 == 3) & (fr == f)), 0)
+              for f in range(3))
+    lanes = np.select([k4 == 0, k4 == 1, k4 == 2, k4 == 3],
+                      [k1 + k2, k0f + k1, k1 + k3f, k1 + k2 + cnt(k4 == 3)])
+    return int(lanes.sum())
+
+
 def _prepared(runner, seq_str, tt_rows=16):
     """Host prep of one contig as the runner does it: the packed geometry
     (on the device) and the bin rows of its translation table 11."""
     import numpy as np
     import torch
 
-    from pyrodigal_tpu.sequence import Sequence
+    from pyrodigal_tpu_torch.sequence import Sequence
     from pyrodigal_tpu_torch.ops import dp_cuda, score_device as sd
 
     seq = Sequence(seq_str)
@@ -154,6 +282,54 @@ def _scores(runner, geo, bin_idx):
     return sd._score_items(runner.tables.as_tuple(), geo, bin_idx,
                            is_meta=True, closed=False,
                            has_nonsd=runner.tables.any_nonsd)
+
+
+def _mega_dp_args(runner, seq_str):
+    """The mega DP's operands for one contig, as its launch builds them
+    (scoring and the star kernel on the card)."""
+    from pyrodigal_tpu_torch.ops import dp_cuda, star_cuda
+    from pyrodigal_tpu_torch.ops.meta_cuda import RELK
+
+    geo, bin_idx, _g, NT, _SB = _prepared(runner, seq_str)
+    (ndx, stop_val, typ, strand, win_lo, valid, edge,
+     cscore, ssc, rsc, usc, stw) = _scores(runner, geo, bin_idx)
+    ndx, stop_val, typ, strand, win_lo, valid, edge = (
+        x[0].contiguous() for x in (ndx, stop_val, typ, strand, win_lo,
+                                    valid, edge))
+    kind4, tile_nn, ovlo, has_ov, _ok = dp_cuda.mega_geometry(
+        ndx, stop_val, typ, strand, valid, True)
+    cs = (cscore + ssc).contiguous()
+    rsc, usc, stw = (a.contiguous() for a in (rsc, usc, stw))
+    tables = star_cuda.star_tables(
+        ndx[None], stop_val[None], kind4[None], edge[None], cs, rsc, usc,
+        stw, RELK, runner.max_overlap)[1:]
+    return (ndx, stop_val, kind4, win_lo, ovlo, has_ov, tile_nn, cs, rsc,
+            usc, *tables, stw, dp_cuda.FXS)
+
+
+def _dp_equal(name, got, ref):
+    """All four DP outputs exactly equal; returns the max abs difference
+    (0)."""
+    import torch
+
+    err = 0
+    for field, a, b in zip(("score", "traceb", "ovmark", "tbndx"), got, ref):
+        err = max(err, int((a - b).abs().max()))
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name} {field}: {int((a != b).sum())} "
+                                 f"entries differ")
+    return err
+
+
+def _plain_timed(fn, *args):
+    """One host-timed call of a plain twin, on the card."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def phase_build():
@@ -195,8 +371,10 @@ def phase_build():
 
 
 def phase_kernels(runner):
-    """Each kernel against its plain version on the card."""
-    import numpy as np
+    """The mega route's kernels against their plain versions on the card:
+    dc-chain and star on the genome; the mega DP exactly equal on the
+    100 kb contig (4 real tiles, so the kernel's three-tile ring wraps)
+    and on a geometry with no valid node, timed at the genome's shape."""
     import torch
 
     from pyrodigal_tpu_torch.ops import dp_cuda, score_device as sd
@@ -226,12 +404,12 @@ def phase_kernels(runner):
     ms = _time_ms(lambda: star_cuda.dc_phase_cumsum(table, codes), 10)
     plain_ms = _time_ms(lambda: star_cuda.dc_phase_cumsum_plain(table, codes),
                         3)
-    out.append({"name": "dc_chain", "route": "cuda",
-                "source": "pyrodigal_tpu_torch/csrc/dc_chain.cu",
-                "replaces": "pyrodigal_tpu/ops/star_pallas.py:293",
-                "max_abs_err": dc_err, "ms": ms,
-                "plain_ms": plain_ms, "shape": [B, SB],
-                "bound_ratio": dc_ratio})
+    # one add per output; the lookup is a read
+    out.append(_record(
+        "dc_chain", "pyrodigal_tpu_torch/csrc/dc_chain.cu",
+        "pyrodigal_tpu/ops/star_pallas.py:293", [B, SB], dc_err, ms,
+        plain_ms, _bound(_nbytes(table, codes), B * SB * 4, B * SB),
+        bound_ratio=dc_ratio))
 
     # -- star at (16, 163,840) from the genome's scores -------------------
     (ndx, stop_val, typ, strand, win_lo, valid, edge,
@@ -255,61 +433,58 @@ def phase_kernels(runner):
                    if a.dtype == torch.float32)
     ms = _time_ms(lambda: star_cuda.star_tables(*args), 10)
     plain_ms = _time_ms(lambda: star_cuda.star_tables_plain(*args), 3)
-    out.append({"name": "star", "route": "cuda",
-                "source": "pyrodigal_tpu_torch/csrc/star.cu",
-                "replaces": "pyrodigal_tpu/ops/star_pallas.py:40",
-                "max_abs_err": star_err, "ms": ms, "plain_ms": plain_ms,
-                "shape": [B, NT]})
+    n_stops = int(((geometry[0] == 1) | (geometry[0] == 3)).sum())
+    out.append(_record(
+        "star", "pyrodigal_tpu_torch/csrc/star.cu",
+        "pyrodigal_tpu/ops/star_pallas.py:40", [B, NT], star_err, ms,
+        plain_ms, _bound(_nbytes(*args[:8]), _nbytes(*got),
+                         B * n_stops * RELK * LANE_OPS)))
 
-    # the DP kernel alone at the genome's shape (no plain run there)
-    def dp_args(ndx, stop_val, win_lo, geometry, cs, rsc, usc, stw, tables):
-        kind4, tile_nn, ovlo, has_ov, _ok = geometry
-        return (ndx, stop_val, kind4, win_lo.contiguous(), ovlo, has_ov,
-                tile_nn, cs, rsc.contiguous(), usc.contiguous(), *tables,
-                stw, dp_cuda.FXS)
-
-    genome_dp = dp_args(ndx[0], stop_val[0], win_lo[0], geometry, cs, rsc,
-                        usc, stw, got[1:])
-    dp_genome_ms = _time_ms(lambda: dp_cuda.mega_dp(*genome_dp), 10)
+    # the DP at the genome's shape: timed, and its µs per node step
+    genome_dp = (ndx[0].contiguous(), stop_val[0].contiguous(), geometry[0],
+                 win_lo[0].contiguous(), geometry[2], geometry[3],
+                 geometry[1], cs, rsc.contiguous(), usc.contiguous(),
+                 *got[1:], stw.contiguous(), dp_cuda.FXS)
+    dp_genome_ms = _launch_ms("dp_mega_launch", genome_dp[:-1],
+                              (B, NT, genome_dp[-1]), 10)
+    steps_genome = int(geometry[1].sum())
+    bound_genome = _bound(_nbytes(*genome_dp[:-1]), 4 * B * NT * 4,
+                          B * _mega_lanes(*(genome_dp[k] for k in (2, 0, 3, 4, 5, 6)))
+                          * LANE_OPS)
     del genome_dp, got, ref, args, cs, cscore, ssc, rsc, usc
 
-    # -- mega DP on the 100 kb contig (NT = 16,384) ------------------------
-    c100 = _records(CONTIGS[2])[0].seq
-    geo, bin_idx, g, NT, SB = _prepared(runner, c100)
-    assert NT == 16384, NT
-    (ndx, stop_val, typ, strand, win_lo, valid, edge,
-     cscore, ssc, rsc, usc, stw) = _scores(runner, geo, bin_idx)
-    ndx, stop_val, typ, strand, win_lo, valid, edge = (
-        x[0] for x in (ndx, stop_val, typ, strand, win_lo, valid, edge))
-    geometry = dp_cuda.mega_geometry(ndx, stop_val, typ, strand, valid, True)
-    cs = (cscore + ssc).contiguous()
-    tables = star_cuda.star_tables(
-        ndx[None].contiguous(), stop_val[None].contiguous(),
-        geometry[0][None], edge[None].contiguous(), cs, rsc.contiguous(),
-        usc.contiguous(), stw.contiguous(), RELK, runner.max_overlap)[1:]
-    a = dp_args(ndx, stop_val, win_lo, geometry, cs, rsc, usc, stw, tables)
+    # -- mega DP on the 100 kb contig (NT = 16,384), then on a geometry
+    # with no valid node; all four outputs exactly equal ------------------
+    a = _mega_dp_args(runner, _records(CONTIGS[2])[0].seq)
+    B, NT = a[7].shape
+    assert NT == 16384 and int(a[6].sum()) > 3 * dp_cuda.MEGA_TILE, NT
     got = dp_cuda.mega_dp(*a)
-    t0 = time.perf_counter()
-    ref = dp_cuda.mega_dp_plain(*a)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    dp_err = 0
-    for name, x, y in zip(("score", "traceb", "ovmark", "tbndx"), got, ref):
-        dp_err = max(dp_err, int((x - y).abs().max()))
-        if not torch.equal(x, y):
-            n_bad = int((x != y).sum())
-            raise AssertionError(f"mega DP {name}: {n_bad} entries differ")
-    ms = _time_ms(lambda: dp_cuda.mega_dp(*a), 10)
-    out.append({"name": "dp_mega", "route": "cuda",
-                "source": "pyrodigal_tpu_torch/csrc/dp_mega.cu",
-                "replaces": "pyrodigal_tpu/ops/dp_pallas.py:470",
-                "max_abs_err": float(dp_err), "ms": ms, "plain_ms": plain_ms,
-                "shape": [int(bin_idx.shape[0]), NT],
-                "ms_genome": dp_genome_ms, "shape_genome": [16, 163840]})
+    ref, plain_ms = _plain_timed(dp_cuda.mega_dp_plain, *a)
+    dp_err = _dp_equal("mega DP (100 kb)", got, ref)
+    empty = list(a)
+    empty[6] = torch.zeros_like(a[6])
+    _dp_equal("mega DP (no valid node)", dp_cuda.mega_dp(*empty),
+              dp_cuda.mega_dp_plain(*empty))
+    ms = _launch_ms("dp_mega_launch", a[:-1], (B, NT, a[-1]), 10)
+    steps = int(a[6].sum())
+    out.append(_record(
+        "dp_mega", "pyrodigal_tpu_torch/csrc/dp_mega.cu",
+        "pyrodigal_tpu/ops/dp_pallas.py:470", [B, NT], float(dp_err), ms,
+        plain_ms, _bound(_nbytes(*a[:-1]), 4 * B * NT * 4,
+                         B * _mega_lanes(*(a[k] for k in (2, 0, 3, 4, 5, 6)))
+                         * LANE_OPS),
+        us_per_step=ms * 1e3 / steps, ms_genome=dp_genome_ms,
+        shape_genome=[16, 163840], steps_genome=steps_genome,
+        us_per_step_genome=dp_genome_ms * 1e3 / steps_genome,
+        bound_ms_genome=bound_genome[0]))
     print("phase 2 kernels, mega route: " + "; ".join(
         f"{k['name']} {k['shape']}: kernel {k['ms']:.3f} ms, plain "
-        f"{k['plain_ms']:.3f} ms, max abs err {k['max_abs_err']:.3g}"
-        for k in out) + f"; dp_mega at [16, 163840]: {dp_genome_ms:.1f} ms",
+        f"{k['plain_ms']:.3f} ms, bound {k['bound_ms']:.4f} ms "
+        f"({k['bound_by']}), max abs err {k['max_abs_err']:.3g}"
+        for k in out) + f"; dp_mega at [16, 163840]: {dp_genome_ms:.2f} ms "
+        f"= {dp_genome_ms * 1e3 / steps_genome:.3f} us per node step "
+        f"({steps_genome} steps); dp_mega equal on 100 kb "
+        f"({steps} steps) and on a geometry with no valid node",
         flush=True)
     return out
 
@@ -317,7 +492,7 @@ def phase_kernels(runner):
 def _first_std_launch(runner, contigs):
     """The first std launch of `contigs` as find_genes_batch packs it:
     (work, geoms)."""
-    from pyrodigal_tpu.sequence import Sequence
+    from pyrodigal_tpu_torch.sequence import Sequence
 
     items = []
     for ci, (_name, s) in enumerate(contigs):
@@ -330,22 +505,52 @@ def _first_std_launch(runner, contigs):
     raise AssertionError("the short-contig set fits one std launch")
 
 
+def _std_dp_args(runner, work, geoms):
+    """The std DP's operands for one std launch, as it builds them
+    (scoring and the star kernel on the card), and the launch's inputs:
+    (dargs, geo, bin_idx, gidx, star args, star tables)."""
+    from pyrodigal_tpu_torch.ops import dp_cuda, score_device as sd
+    from pyrodigal_tpu_torch.ops import star_cuda
+    from pyrodigal_tpu_torch.ops.meta_cuda import RELK
+
+    geo, bin_idx, gidx, nonsd = runner._std_inputs(work, geoms)
+    (ndx, stop_val, typ, strand, win_lo, valid, edge,
+     cscore, ssc, rsc, usc, stw) = sd._score_items(
+        runner.tables.as_tuple(), geo, bin_idx, gidx, is_meta=True,
+        closed=False, has_nonsd=nonsd)
+    kind4 = dp_cuda.kind4_of(typ, strand, valid)
+    cs = (cscore + ssc).contiguous()
+    rsc, usc, stw = (a.contiguous() for a in (rsc, usc, stw))
+    sargs = (ndx.contiguous(), stop_val.contiguous(), kind4,
+             edge.contiguous(), cs, rsc, usc, stw, RELK, runner.max_overlap)
+    tables = star_cuda.star_tables(*sargs)
+    dargs = (sargs[0], sargs[1], kind4, win_lo.contiguous(), cs, rsc, usc,
+             *tables[1:], stw)
+    return dargs, geo, bin_idx, gidx, sargs, tables
+
+
 def phase_kernels_std(runner, contigs):
     """The std route's kernels against their plain versions on the card,
-    on the first std launch of the short-contig set."""
+    on the first std launch of the short-contig set; the std DP also on a
+    launch of four 40 kb genome slices with win_lo lowered so that rows
+    reach 3 chunks of 640, and on the first launch with 16 rows emptied
+    (no valid node)."""
     import torch
 
     from pyrodigal_tpu_torch.ops import dp_cuda, score_device as sd
     from pyrodigal_tpu_torch.ops import star_cuda
     from pyrodigal_tpu_torch.ops.meta_cuda import RELK
+    from pyrodigal_tpu_torch.sequence import Sequence
 
     work, geoms = _first_std_launch(runner, contigs)
-    geo, bin_idx, gidx, nonsd = runner._std_inputs(work, geoms)
+    dargs, geo, bin_idx, gidx, sargs, tables = _std_dp_args(runner, work,
+                                                            geoms)
     BT, S, n = (bin_idx.shape[0], geo["digits"].shape[1],
                 geo["n32"].shape[2])
     out = []
 
-    # -- phase cumsum on each row's looked-up dc scores, both strands ----
+    # -- phase cumsum on each row's looked-up dc scores, both strands;
+    # PyTorch's own scan of the same function beside it ------------------
     table = runner.tables.gene_dc[bin_idx].contiguous()
     depth = 4 + 8 + math.ceil(S / 3 / 1024) + 1
     pc_err, pc_ratio = 0.0, 0.0
@@ -358,24 +563,16 @@ def phase_kernels_std(runner, contigs):
         pc_err, pc_ratio = max(pc_err, err), max(pc_ratio, ratio)
     ms = _time_ms(lambda: star_cuda.phase_cumsum(x), 10)
     plain_ms = _time_ms(lambda: star_cuda.phase_cumsum_plain(x), 3)
-    out.append({"name": "phase_cumsum", "route": "cuda",
-                "source": "pyrodigal_tpu_torch/csrc/phase_cumsum.cu",
-                "replaces": "pyrodigal_tpu/ops/star_pallas.py:229",
-                "max_abs_err": pc_err, "ms": ms, "plain_ms": plain_ms,
-                "shape": [BT, S], "bound_ratio": pc_ratio})
+    library_ms = _time_ms(lambda: torch.cumsum(x.view(BT, S // 3, 3), 1), 3)
+    out.append(_record(
+        "phase_cumsum", "pyrodigal_tpu_torch/csrc/phase_cumsum.cu",
+        "pyrodigal_tpu/ops/star_pallas.py:229", [BT, S], pc_err, ms,
+        plain_ms, _bound(_nbytes(x), _nbytes(x), BT * S),
+        library_ms=library_ms, bound_ratio=pc_ratio))
 
     # -- star with one geometry row per bin row --------------------------
-    (ndx, stop_val, typ, strand, win_lo, valid, edge,
-     cscore, ssc, rsc, usc, stw) = sd._score_items(
-        runner.tables.as_tuple(), geo, bin_idx, gidx, is_meta=True,
-        closed=False, has_nonsd=nonsd)
-    kind4 = dp_cuda.kind4_of(typ, strand, valid)
-    cs = (cscore + ssc).contiguous()
-    rsc, usc, stw = (a.contiguous() for a in (rsc, usc, stw))
-    args = (ndx.contiguous(), stop_val.contiguous(), kind4,
-            edge.contiguous(), cs, rsc, usc, stw, RELK, runner.max_overlap)
-    got = star_cuda.star_tables(*args)
-    ref = star_cuda.star_tables_plain(*args)
+    got = tables
+    ref = star_cuda.star_tables_plain(*sargs)
     for name, a, b in zip(("star_ptr", "opv1", "val3", "t_sv", "t_ndx"),
                           got, ref):
         if a.dtype == torch.int32:
@@ -387,43 +584,74 @@ def phase_kernels_std(runner, contigs):
         raise AssertionError("per-row star: no pointer set")
     star_err = max(float((a - b).abs().max()) for a, b in zip(got, ref)
                    if a.dtype == torch.float32)
-    star_ms = _time_ms(lambda: star_cuda.star_tables(*args), 10)
-    star_plain_ms = _time_ms(lambda: star_cuda.star_tables_plain(*args), 3)
+    star_ms = _time_ms(lambda: star_cuda.star_tables(*sargs), 10)
+    star_plain_ms = _time_ms(lambda: star_cuda.star_tables_plain(*sargs), 3)
+    kind4 = dargs[2]
+    n_stops = int(((kind4 == 1) | (kind4 == 3)).sum())
+    star_bound = _bound(_nbytes(*sargs[:8]), _nbytes(*got),
+                        n_stops * RELK * LANE_OPS)
     star = {"max_abs_err_per_row": star_err, "ms_per_row": star_ms,
-            "plain_ms_per_row": star_plain_ms, "shape_per_row": [BT, n]}
+            "plain_ms_per_row": star_plain_ms, "shape_per_row": [BT, n],
+            "bound_ms_per_row": star_bound[0],
+            "bound_by_per_row": star_bound[1]}
 
     # -- the std DP: all four outputs exactly equal -----------------------
-    dargs = (args[0], args[1], kind4, win_lo.contiguous(), cs, rsc, usc,
-             *got[1:], stw)
     got = dp_cuda.std_dp(*dargs)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ref = dp_cuda.std_dp_plain(*dargs)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    for name, a, b in zip(("score", "traceb", "ovmark", "tbndx"), got, ref):
-        if not torch.equal(a, b):
-            raise AssertionError(f"std DP {name}: {int((a != b).sum())} "
-                                 f"entries differ")
+    ref, plain_ms = _plain_timed(dp_cuda.std_dp_plain, *dargs)
+    _dp_equal("std DP (first launch)", got, ref)
     if int((got[1] != -1).sum()) < BT * 100:
         raise AssertionError("std DP: too few committed nodes")
-    ms = _time_ms(lambda: dp_cuda.std_dp(*dargs), 10)
-    out.append({"name": "dp_std", "route": "cuda",
-                "source": "pyrodigal_tpu_torch/csrc/dp_std.cu",
-                "replaces": "pyrodigal_tpu/ops/dp_pallas.py:76",
-                "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                "shape": [BT, n],
-                "nodes_max": int((kind4 != 4).sum(1).max())})
+    ms = _launch_ms("dp_std_launch", dargs, (BT, n), 10)
+    steps = int((kind4 != 4).sum(1).max())
+    # 16 rows with no valid node
+    empty = list(dargs)
+    empty[2] = kind4.clone()
+    empty[2][::8] = 4
+    _dp_equal("std DP (empty rows)", dp_cuda.std_dp(*empty),
+              dp_cuda.std_dp_plain(*empty))
+    # rows that reach 3 chunks: four 40 kb genome slices, win_lo lowered to
+    # i - 1,900 (the DP is defined for any win_lo <= i)
+    genome = _records(GENOME)[0].seq
+    items = []
+    for k in range(16):
+        cand, gs, _nbt, route = runner._prepare_contig(
+            Sequence(genome[k * 40000:(k + 1) * 40000]))
+        if route == "std" and len(items) < 4:
+            items.append((k, cand, gs))
+    (launch,) = runner._pack_std(items)
+    deep = list(_std_dp_args(runner, launch["work"], launch["geoms"])[0])
+    nn_deep = int((deep[2] != 4).sum(1).max())
+    assert nn_deep > 2 * 640, nn_deep
+    deep[3] = torch.clamp(torch.arange(deep[3].shape[1], device=deep[3].device,
+                                       dtype=torch.int32) - 1900,
+                          min=0)[None].expand_as(deep[3]).contiguous()
+    ref_deep, plain_deep_ms = _plain_timed(dp_cuda.std_dp_plain, *deep)
+    _dp_equal("std DP (3 chunks)", dp_cuda.std_dp(*deep), ref_deep)
+    deep_ms = _launch_ms("dp_std_launch", deep, tuple(deep[4].shape), 10)
+    out.append(_record(
+        "dp_std", "pyrodigal_tpu_torch/csrc/dp_std.cu",
+        "pyrodigal_tpu/ops/dp_pallas.py:76", [BT, n], 0.0, ms, plain_ms,
+        _bound(_nbytes(*dargs), 4 * BT * n * 4,
+               _std_lanes(kind4, dargs[0], dargs[3]) * LANE_OPS),
+        nodes_max=steps, us_per_step=ms * 1e3 / steps,
+        ms_3chunks=deep_ms, plain_ms_3chunks=plain_deep_ms,
+        shape_3chunks=list(deep[4].shape), nodes_max_3chunks=nn_deep))
     print(f"phase 2 kernels, std route (first std launch: {len(work)} work "
           f"items, {len(geoms)} geometries, BT {BT}, S {S}, n {n}): "
           + "; ".join(f"{k['name']} {k['shape']}: kernel {k['ms']:.3f} ms, "
-                      f"plain {k['plain_ms']:.3f} ms, max abs err "
-                      f"{k['max_abs_err']:.3g}" for k in out)
-          + f"; per-row star {star['shape_per_row']}: kernel "
+                      f"plain {k['plain_ms']:.3f} ms, bound "
+                      f"{k['bound_ms']:.4f} ms ({k['bound_by']}), max abs "
+                      f"err {k['max_abs_err']:.3g}" for k in out)
+          + f"; torch.cumsum of the same function {library_ms:.3f} ms"
+          f"; dp_std {ms * 1e3 / steps:.3f} us per node step ({steps} "
+          f"steps), equal with 16 rows emptied, and on a 3-chunk launch "
+          f"{list(deep[4].shape)} ({nn_deep} nodes, win_lo = i - 1900): "
+          f"kernel {deep_ms:.3f} ms, plain {plain_deep_ms:.1f} ms"
+          f"; per-row star {star['shape_per_row']}: kernel "
           f"{star_ms:.3f} ms, plain {star_plain_ms:.3f} ms, max abs err "
           f"{star_err:.3g}; kernels the mean of 10 calls, plain "
-          f"phase-cumsum and star of 3, the plain DP one host-timed call",
-          flush=True)
+          f"phase-cumsum, star and torch.cumsum of 3, the plain DPs one "
+          f"host-timed call", flush=True)
     return out, star
 
 
@@ -441,10 +669,11 @@ def _refcore(seqs):
     """The exact C engine's genes for every contig, numbered as one call
     of a fresh GeneFinder numbers them (num_seq 1, 2, ...), on 8
     threads."""
-    import pyrodigal_tpu
+    import pyrodigal_tpu_torch
 
     def one(i):
-        finder = pyrodigal_tpu.GeneFinder(meta=True, backend="refcore")
+        finder = pyrodigal_tpu_torch.GeneFinder(meta=True,
+                                                backend="refcore")
         finder._num_seq = i + 1
         return finder.find_genes(seqs[i])
 
@@ -461,7 +690,7 @@ def _drive(named, kernels):
     import torch
 
     import pyrodigal_tpu_torch
-    from pyrodigal_tpu.sequence import Sequence
+    from pyrodigal_tpu_torch.sequence import Sequence
     from pyrodigal_tpu_torch.ops import dp_cuda, star_cuda
 
     seqs = [s for _n, s in named]
@@ -513,7 +742,7 @@ def _exact_score(runner, seq, nodes_by_tt, b):
 
 def phase_end_to_end_mega():
     """Phase 3a: the four bench contigs, all on the mega route."""
-    from pyrodigal_tpu.sequence import Sequence
+    from pyrodigal_tpu_torch.sequence import Sequence
 
     recs = [r for name in CONTIGS for r in _records(name)]
     r = _drive([(rec.id, rec.seq) for rec in recs], MEGA_KERNELS)
@@ -552,7 +781,7 @@ def phase_end_to_end_mega():
 
 def phase_end_to_end_std(contigs):
     """Phase 3b: the short-contig set, the std route."""
-    from pyrodigal_tpu.sequence import Sequence
+    from pyrodigal_tpu_torch.sequence import Sequence
 
     r = _drive(contigs, STD_KERNELS)
     runner = r["runner"]
@@ -604,7 +833,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from pyrodigal_tpu import METAGENOMIC_BINS
+    from pyrodigal_tpu_torch import METAGENOMIC_BINS
     from pyrodigal_tpu_torch.ops.meta_cuda import CudaMetaRunner
 
     phase_build()
@@ -621,18 +850,20 @@ def main():
     std = phase_end_to_end_std(contigs)
     for k in kernels:
         k["launches"] = mega[k["name"]] + std[k["name"]]
-    if "jax" in sys.modules:
-        raise RuntimeError("jax was imported: the port must run without it")
+        k["launches_bench_set"] = mega[k["name"]]
+        k["launches_short_set"] = std[k["name"]]
+    for mod in ("jax", "pyrodigal_tpu"):
+        if mod in sys.modules:
+            raise RuntimeError(f"{mod} was imported: the port stands alone")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(smi)
-    # the port drives one card
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}))
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -50,6 +50,8 @@ _SIGNATURES = {
     # ndx, sv, kind4, win_lo, cs, rsc, usc, opv1, val3, t_sv, t_ndx, st_wt,
     # score, traceb, ov, tbndx, BT, n, stream
     "dp_std_launch": [_P] * 16 + [_I, _I, _P],
+    # n: shared bytes of a std DP row of n nodes
+    "dp_std_smem_bytes": [_I],
 }
 
 _lock = threading.Lock()

@@ -16,9 +16,8 @@ lexicographic (value, source index) maximum.
 import numpy as np
 import torch
 
-from pyrodigal_tpu._constants import MAX_OPP_OVLP, OPER_DIST, STOP
-
 from .. import _build
+from .._constants import MAX_OPP_OVLP, OPER_DIST, STOP
 
 LAUNCHES = {"dp_mega": 0, "dp_std": 0}
 
@@ -586,9 +585,17 @@ def std_dp(ndx, stop_val, kind4, win_lo, cs, rsc, usc, opv1, val3, t_sv,
                              f"{a.dtype} {tuple(a.shape)}")
         if not a.is_contiguous() or a.device != dev:
             raise ValueError(f"{name}: not contiguous on {dev}")
+    lib = _build.lib()
+    # the kernel stages a whole row in shared memory (the launch fails on
+    # a row past the device's limit; this names the cause)
+    smem = lib.dp_std_smem_bytes(n)
+    limit = getattr(torch.cuda.get_device_properties(dev),
+                    "shared_memory_per_block_optin", smem)
+    if smem > limit:
+        raise ValueError(f"std_dp: a row of {n} nodes needs {smem} B of "
+                         f"shared memory, past the device's {limit} B")
     out = [torch.empty((BT, n), dtype=torch.int32, device=dev)
            for _ in range(4)]
-    lib = _build.lib()
     _build.check(lib.dp_std_launch(
         *(a.data_ptr() for a in (ndx, stop_val, kind4, win_lo, cs, rsc, usc,
                                  opv1, val3, t_sv, t_ndx, st_wt)),

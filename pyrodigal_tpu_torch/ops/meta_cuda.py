@@ -27,11 +27,10 @@ import threading
 import numpy as np
 import torch
 
-from pyrodigal_tpu.genes import Genes
-from pyrodigal_tpu.nodes import Nodes
-from pyrodigal_tpu.sequence import Sequence
-from pyrodigal_tpu._constants import STOP
-
+from .._constants import STOP
+from ..genes import Genes
+from ..nodes import Nodes
+from ..sequence import Sequence
 from . import dp_cuda
 from . import score_device as sd
 
@@ -321,7 +320,7 @@ class CudaMetaRunner:
     def _produce_fallback(self, seq, num_seq):
         """A contig the mega kernel cannot take: the sequential exact-C
         path."""
-        from pyrodigal_tpu.gene_finder import GeneFinder
+        from ..gene_finder import GeneFinder
         gf = GeneFinder(
             meta=True, metagenomic_bins=self.bins,
             closed=self.closed, mask=self.mask,

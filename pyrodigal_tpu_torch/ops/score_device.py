@@ -25,9 +25,8 @@ import ctypes
 import numpy as np
 import torch
 
-from pyrodigal_tpu import _native
-from pyrodigal_tpu._constants import MAX_NODE_DIST, STOP
-
+from .. import _native
+from .._constants import MAX_NODE_DIST, STOP
 from . import dp_cuda, star_cuda
 from .dp_cuda import _fdiv
 

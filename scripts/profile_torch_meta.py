@@ -64,7 +64,7 @@ def warm_passes(finder, seqs, passes):
 
 
 def stage_replay(runner, seqs):
-    from pyrodigal_tpu.sequence import Sequence
+    from pyrodigal_tpu_torch.sequence import Sequence
 
     contigs = [Sequence(s) for s in seqs]
     preps, prep_one = [], []

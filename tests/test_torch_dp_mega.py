@@ -154,3 +154,44 @@ def test_dp_kernel_equals_plain(cases, case, cuda_device):
     ref = _port(inp, fxs)
     for a, b in zip(got, ref):
         assert torch.equal(a.cpu(), b)
+
+
+def _kernel_args(inp, fxs, device):
+    """`mega_dp`'s operands for `inp` on `device`."""
+    def t(a):
+        return torch.from_numpy(np.array(a)).to(device)
+
+    ndx, stop_val, typ, strand, win_lo, valid = (
+        t(a[0]) for a in inp["geometry"])
+    kind4, tile_nn, ovlo, has_ov, _ok = dp_cuda.mega_geometry(
+        ndx, stop_val, typ, strand, valid, inp["monotonic"])
+    return [ndx, stop_val, kind4, win_lo, ovlo, has_ov, tile_nn,
+            *(t(a) for a in inp["scores"]), *(t(a) for a in inp["tables"]),
+            t(inp["st_wt"]), fxs]
+
+
+@pytest.mark.cuda
+@needs_bins
+@pytest.mark.parametrize("case", ["100kb", "no_valid_node"])
+def test_dp_kernel_edges_equal_plain(data, case, cuda_device):
+    """The kernel against its plain twin, both on the card, where the
+    kernel's design has edges: the 100 kb contig, whose 6,918 nodes span
+    four tiles, so the kernel's three-tile ring of node slots and its
+    source lists wrap (and the JAX kernel's 256-slot fwd-stop ring with
+    them); and a geometry with no valid node."""
+    runner = CudaMetaRunner(METAGENOMIC_BINS, device="cpu")
+    seq = list(parse(data(
+        "GCF_001457455.1_NCTC11397_genomic_100kb.fna.gz")))[0].seq
+    inp = _dp_inputs(runner, [seq], True)
+    runner.close()
+    args = _kernel_args(inp, 2048, cuda_device)
+    assert int(args[6].sum()) > 3 * T
+    if case == "no_valid_node":
+        args[6] = torch.zeros_like(args[6])
+    got = dp_cuda.mega_dp(*args)
+    ref = dp_cuda.mega_dp_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    committed = int((got[1] != -1).sum())
+    assert committed == 0 if case == "no_valid_node" else committed > 1000

@@ -172,3 +172,20 @@ def test_dp_kernel_equals_plain(cases, case, cuda_device):
     ref = _port(inp)
     for a, b in zip(got, ref):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@needs_bins
+def test_dp_kernel_rows_with_no_valid_node(cases, cuda_device):
+    """Rows with no valid node beside full ones: the kernel walks empty
+    source lists there and commits nothing, as the plain version."""
+    inp = dict(cases["two_contigs"], geometry=list(
+        cases["two_contigs"]["geometry"]))
+    valid = inp["geometry"][5].copy()
+    valid[::4] = 0
+    inp["geometry"][5] = valid
+    got = _port(inp, cuda_device)
+    ref = _port(inp)
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b)
+    assert (got[1][::4] == -1).all()
