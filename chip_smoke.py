@@ -7,12 +7,16 @@ Phases, each printing one line:
 
 1. build: compile the five CUDA kernels from `pyrodigal_tpu_torch/csrc`
    (one nvcc per source, in parallel; seconds, and registers / shared
-   memory / spills per kernel);
+   memory / spills of every entry function);
 2. kernels: each kernel against its plain PyTorch version on the card, at
    its path's shapes, timed with CUDA events, beside its bound (bytes over
    the HBM rate or operations over the f32 rate, the larger) and, for
-   phase-cumsum, `torch.cumsum` of the same function.  Mega route:
-   dc-chain (both code rows) and star on the 2.46 Mbp genome; the mega DP
+   phase-cumsum, `torch.cumsum` of the same function.  The two prefix
+   sums are held to their sum-order bound (`star_cuda.sum_order_bound`),
+   checked bit-identical across two calls, and timed as the mean of 10
+   calls in one CUDA graph.  Mega route: dc-chain (both code rows, and
+   timed at the bench pass's other mega launches) and star on the
+   2.46 Mbp genome; the mega DP
    timed there and held exactly equal to its twin on the 100 kb contig
    and on a geometry with no valid node.  Std route, on the first std
    launch of the short-contig set (128 rows, 49,152 bp, 3,072 nodes):
@@ -62,6 +66,10 @@ CONTIGS = [                                   # bench.py WORKLOAD
 SHORT_EXTRA = "KK037166.fna.gz"               # a 20 kb contig, whole
 U = 2.0 ** -24                                # f32 unit roundoff
 KERNELS = ("dc_chain", "phase_cumsum", "star", "dp_mega", "dp_std")
+# every entry function of csrc/*.cu: each kernel's own, and the chunk-total
+# passes of the two prefix sums
+ENTRIES = tuple(f"{k}_kernel" for k in KERNELS) + (
+    "dc_chain_reduce_kernel", "phase_cumsum_reduce_kernel")
 MEGA_KERNELS = ("dc_chain", "star", "dp_mega")
 STD_KERNELS = ("phase_cumsum", "star", "dp_std")
 # published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
@@ -86,6 +94,30 @@ def _time_ms(fn, reps):
         fn()
     stop.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def _graph_ms(fn, reps):
+    """Mean device milliseconds per call of fn: `reps` calls captured in
+    one CUDA graph after a warm-up call, one warm replay, then one timed
+    replay (no host launch time between the calls)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(stop) / reps
 
 
@@ -134,19 +166,15 @@ def short_contigs():
     return out
 
 
-def _bound_check(name, got, ref, x_abs, depth):
+def _bound_check(name, got, ref, x_abs):
     """A prefix sum against its plain (f64, rounded once) twin, within the
-    kernel's summation depth times u times the prefix sum of |x|, plus
-    the plain version's final rounding; returns (max abs err, worst ratio
-    of error to bound)."""
-    import torch
+    kernel's sum-order bound (`star_cuda.sum_order_bound`: its depth
+    times u times the prefix sum of |x|, plus the twin's rounding);
+    returns (max abs err, worst ratio of error to bound)."""
+    from pyrodigal_tpu_torch.ops import star_cuda
 
-    B, S = x_abs.shape
-    pad = (-S) % 3
-    cabs = torch.nn.functional.pad(x_abs.double(), (0, pad)) \
-        .reshape(B, -1, 3).cumsum(1).reshape(B, -1)[:, :S]
     err = (got.double() - ref.double()).abs()
-    bound = depth * U * cabs + U * ref.double().abs()
+    bound = star_cuda.sum_order_bound(x_abs, ref)
     if not bool((err <= bound).all()):
         raise AssertionError(
             f"{name} deviates beyond its sum-order bound: max "
@@ -332,6 +360,13 @@ def _plain_timed(fn, *args):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def _entry_name(mangled):
+    """The entry function of ENTRIES a (mangled) ptxas name denotes, or
+    None: `<length><name>` in an Itanium-mangled name."""
+    return next((n for n in ENTRIES
+                 if mangled == n or f"{len(n)}{n}" in mangled), None)
+
+
 def phase_build():
     from pyrodigal_tpu_torch import _build
 
@@ -340,14 +375,13 @@ def phase_build():
         os.remove(_build.LIB_PATH)
     _build.lib()
     info = _build.BUILD_INFO
-    names = tuple(f"{k}_kernel" for k in KERNELS)
     kernels = {}
     current = None
     for line in info["ptxas"].splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\w+)", line)
         if m:
-            current = next((k for k in names if k in m.group(1)), None)
+            current = _entry_name(m.group(1))
             continue
         if current is None:
             continue
@@ -361,13 +395,78 @@ def phase_build():
             rec["regs"] = int(m.group(1))
             m = re.search(r"(\d+) bytes smem", line)
             rec["smem"] = int(m.group(1)) if m else 0
-    if set(k for k, v in kernels.items() if "regs" in v) != set(names):
+    if {k for k, v in kernels.items() if "regs" in v} != set(ENTRIES):
         raise RuntimeError(f"ptxas report incomplete: {kernels}\n"
                            f"{info['ptxas'][-3000:]}")
     print(f"phase 1 build: nvcc {info['seconds']:.1f} s; "
           + "; ".join(f"{k}: {v['regs']} regs, {v['smem']} B smem, "
                       f"{v.get('spill', 0)} B spill"
                       for k, v in sorted(kernels.items())), flush=True)
+
+
+def _prefix_kernel_record(kernel, cases, fn, plain, x_abs, bound):
+    """A phase prefix-sum kernel on its path's operands: each case
+    (label, args) against the plain twin within the sum-order bound and
+    twice bit-identical; then the last case timed: the mean of 10 calls
+    in one CUDA graph (`ms`) and on the stream through the wrapper
+    (`ms_stream`: host launches included), the plain twin over 3
+    calls."""
+    import torch
+
+    err, ratio = 0.0, 0.0
+    for label, args in cases:
+        got = fn(*args)
+        ref = plain(*args)
+        e, r = _bound_check(f"{kernel} ({label})", got, ref, x_abs(*args))
+        err, ratio = max(err, e), max(ratio, r)
+        if not torch.equal(got, fn(*args)):
+            raise AssertionError(f"{kernel} ({label}): two calls differ")
+        del got, ref
+    args = cases[-1][1]
+    bound_ms, bound_by = bound(*args)
+    return {"err": err, "ratio": ratio, "ms": _graph_ms(lambda: fn(*args), 10),
+            "ms_stream": _time_ms(lambda: fn(*args), 10),
+            "plain_ms": _time_ms(lambda: plain(*args), 3),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _later_mega_launches(runner):
+    """The bench pass's mega launches after the first (the genome alone),
+    packed as `find_genes_batch` packs them (`_group_mega`, then
+    `_sweep_mega_multi`'s buckets): [(geometry on the device, bin rows)]."""
+    import numpy as np
+    import torch
+
+    from pyrodigal_tpu_torch.sequence import Sequence
+    from pyrodigal_tpu_torch.ops import dp_cuda, score_device as sd
+
+    items = []
+    for ci, rec in enumerate(r for name in CONTIGS for r in _records(name)):
+        cand, geoms, _nbt, route = runner._prepare_contig(Sequence(rec.seq))
+        assert route == "mega", route
+        by_tt = {}
+        for b in cand:
+            by_tt.setdefault(runner.bins[b].training_info.translation_table,
+                             []).append(b)
+        items += [{"ci": ci, "g": geoms[tt], "rows": bs}
+                  for tt, bs in by_tt.items()]
+    out = []
+    for gr in runner._group_mega(items)[1:]:
+        its = gr["items"]
+        nb, sb = (sum(r) for r in zip(*(runner._mega_regions(it["g"])
+                                        for it in its)))
+        NT = next(b for b in runner.MEGA_NT if b >= nb)
+        SB = next(b for b in runner.MEGA_SB if b >= sb)
+        CP = next(c for c in runner.MEGA_CP if c >= len(its))
+        rows = sorted({b for it in its for b in it["rows"]})
+        B = next(b for b in runner.MEGA_ROWB if b >= len(rows))
+        bin_idx = np.full(B, rows[0], np.int64)
+        bin_idx[:len(rows)] = rows
+        packed = sd.pack_geometries_multi([it["g"] for it in its], NT, SB,
+                                          CP, dp_cuda.MEGA_TILE)
+        out.append((sd.to_device(packed, runner.device),
+                    torch.from_numpy(bin_idx).to(runner.device)))
+    return out
 
 
 def phase_kernels(runner):
@@ -387,29 +486,38 @@ def phase_kernels(runner):
     B = bin_idx.shape[0]
     assert (B, NT, SB) == (16, 163840, 2555904), (B, NT, SB)
 
-    # -- dc-chain at (16, 2.56 M) on the genome's codes, both strands -----
+    # -- dc-chain at (16, 2.56 M) on the genome's codes, both strands, then
+    # timed at the shapes of the bench pass's other mega launches ---------
     table = runner.tables.gene_dc[bin_idx].contiguous()
-    # the kernel's summation depth: items per thread + block scan + one
-    # carry add per chunk
-    depth = 4 + 8 + math.ceil(SB / 3 / 1024) + 1
-    dc_err, dc_ratio = 0.0, 0.0
-    for strand, m6 in zip(("m6f", "m6r"), sd._derive_m6(geo)):
-        codes = m6[0]
-        got = star_cuda.dc_phase_cumsum(table, codes)
-        ref = star_cuda.dc_phase_cumsum_plain(table, codes)
-        err, ratio = _bound_check(f"dc_chain ({strand})", got, ref,
-                                  table[:, codes.long()].abs(), depth)
-        dc_err, dc_ratio = max(dc_err, err), max(dc_ratio, ratio)
-        del got, ref
-    ms = _time_ms(lambda: star_cuda.dc_phase_cumsum(table, codes), 10)
-    plain_ms = _time_ms(lambda: star_cuda.dc_phase_cumsum_plain(table, codes),
-                        3)
-    # one add per output; the lookup is a read
+    dc = _prefix_kernel_record(
+        "dc_chain", [(strand, (table, m6[0])) for strand, m6 in
+                     zip(("m6f", "m6r"), sd._derive_m6(geo))],
+        star_cuda.dc_phase_cumsum, star_cuda.dc_phase_cumsum_plain,
+        lambda t, c: t[:, c.long()].abs(),
+        lambda t, c: _bound(_nbytes(t, c), t.shape[0] * c.shape[0] * 4,
+                            t.shape[0] * c.shape[0]))
+    later = []
+    for lgeo, lbins in _later_mega_launches(runner):
+        ltable = runner.tables.gene_dc[lbins].contiguous()
+        lcodes = sd._derive_m6(lgeo)[0][0]
+        later.append({
+            "shape": [ltable.shape[0], lcodes.shape[0]],
+            "ms": _graph_ms(lambda: star_cuda.dc_phase_cumsum(ltable, lcodes),
+                            10),
+            "bound_ms": _bound(_nbytes(ltable, lcodes),
+                               ltable.shape[0] * lcodes.shape[0] * 4,
+                               ltable.shape[0] * lcodes.shape[0])[0]})
+        del lgeo, ltable, lcodes
+    # two calls a launch (Cf, Cr)
+    per_pass = 2 * (dc["ms"] + sum(x["ms"] for x in later))
+    bound_pass = 2 * (dc["bound_ms"] + sum(x["bound_ms"] for x in later))
     out.append(_record(
         "dc_chain", "pyrodigal_tpu_torch/csrc/dc_chain.cu",
-        "pyrodigal_tpu/ops/star_pallas.py:293", [B, SB], dc_err, ms,
-        plain_ms, _bound(_nbytes(table, codes), B * SB * 4, B * SB),
-        bound_ratio=dc_ratio))
+        "pyrodigal_tpu/ops/star_pallas.py:293", [B, SB], dc["err"],
+        dc["ms"], dc["plain_ms"], (dc["bound_ms"], dc["bound_by"]),
+        bound_ratio=dc["ratio"], ms_stream=dc["ms_stream"],
+        bit_identical=True, later_launches=later,
+        ms_bench_pass=per_pass, bound_ms_bench_pass=bound_pass))
 
     # -- star at (16, 163,840) from the genome's scores -------------------
     (ndx, stop_val, typ, strand, win_lo, valid, edge,
@@ -478,14 +586,19 @@ def phase_kernels(runner):
         us_per_step_genome=dp_genome_ms * 1e3 / steps_genome,
         bound_ms_genome=bound_genome[0]))
     print("phase 2 kernels, mega route: " + "; ".join(
-        f"{k['name']} {k['shape']}: kernel {k['ms']:.3f} ms, plain "
+        f"{k['name']} {k['shape']}: kernel {k['ms']:.4f} ms, plain "
         f"{k['plain_ms']:.3f} ms, bound {k['bound_ms']:.4f} ms "
         f"({k['bound_by']}), max abs err {k['max_abs_err']:.3g}"
         for k in out) + f"; dp_mega at [16, 163840]: {dp_genome_ms:.2f} ms "
         f"= {dp_genome_ms * 1e3 / steps_genome:.3f} us per node step "
         f"({steps_genome} steps); dp_mega equal on 100 kb "
-        f"({steps} steps) and on a geometry with no valid node",
-        flush=True)
+        f"({steps} steps) and on a geometry with no valid node; dc_chain "
+        f"bit-identical across two calls, stream-timed {dc['ms_stream']:.4f} "
+        f"ms, at the later mega launches " + ", ".join(
+            f"{x['shape']} {x['ms']:.4f} ms (bound {x['bound_ms']:.4f})"
+            for x in later) + f", {per_pass:.4f} ms a bench pass (bound "
+        f"{bound_pass:.4f}); prefix kernels the mean of 10 calls in a CUDA "
+        f"graph", flush=True)
     return out
 
 
@@ -552,23 +665,21 @@ def phase_kernels_std(runner, contigs):
     # -- phase cumsum on each row's looked-up dc scores, both strands;
     # PyTorch's own scan of the same function beside it ------------------
     table = runner.tables.gene_dc[bin_idx].contiguous()
-    depth = 4 + 8 + math.ceil(S / 3 / 1024) + 1
-    pc_err, pc_ratio = 0.0, 0.0
-    for strand, m6 in zip(("m6f", "m6r"), sd._derive_m6(geo)):
-        x = table.gather(1, m6[gidx].long()).contiguous()
-        got = star_cuda.phase_cumsum(x)
-        ref = star_cuda.phase_cumsum_plain(x)
-        err, ratio = _bound_check(f"phase_cumsum ({strand})", got, ref,
-                                  x.abs(), depth)
-        pc_err, pc_ratio = max(pc_err, err), max(pc_ratio, ratio)
-    ms = _time_ms(lambda: star_cuda.phase_cumsum(x), 10)
-    plain_ms = _time_ms(lambda: star_cuda.phase_cumsum_plain(x), 3)
+    xs = [(strand, (table.gather(1, m6[gidx].long()).contiguous(),))
+          for strand, m6 in zip(("m6f", "m6r"), sd._derive_m6(geo))]
+    pc = _prefix_kernel_record(
+        "phase_cumsum", xs, star_cuda.phase_cumsum,
+        star_cuda.phase_cumsum_plain, lambda x: x.abs(),
+        lambda x: _bound(_nbytes(x), _nbytes(x), x.numel()))
+    x = xs[-1][1][0]
     library_ms = _time_ms(lambda: torch.cumsum(x.view(BT, S // 3, 3), 1), 3)
     out.append(_record(
         "phase_cumsum", "pyrodigal_tpu_torch/csrc/phase_cumsum.cu",
-        "pyrodigal_tpu/ops/star_pallas.py:229", [BT, S], pc_err, ms,
-        plain_ms, _bound(_nbytes(x), _nbytes(x), BT * S),
-        library_ms=library_ms, bound_ratio=pc_ratio))
+        "pyrodigal_tpu/ops/star_pallas.py:229", [BT, S], pc["err"],
+        pc["ms"], pc["plain_ms"], (pc["bound_ms"], pc["bound_by"]),
+        library_ms=library_ms, bound_ratio=pc["ratio"],
+        ms_stream=pc["ms_stream"], bit_identical=True))
+    del xs, x
 
     # -- star with one geometry row per bin row --------------------------
     got = tables
@@ -638,11 +749,13 @@ def phase_kernels_std(runner, contigs):
         shape_3chunks=list(deep[4].shape), nodes_max_3chunks=nn_deep))
     print(f"phase 2 kernels, std route (first std launch: {len(work)} work "
           f"items, {len(geoms)} geometries, BT {BT}, S {S}, n {n}): "
-          + "; ".join(f"{k['name']} {k['shape']}: kernel {k['ms']:.3f} ms, "
+          + "; ".join(f"{k['name']} {k['shape']}: kernel {k['ms']:.4f} ms, "
                       f"plain {k['plain_ms']:.3f} ms, bound "
                       f"{k['bound_ms']:.4f} ms ({k['bound_by']}), max abs "
                       f"err {k['max_abs_err']:.3g}" for k in out)
-          + f"; torch.cumsum of the same function {library_ms:.3f} ms"
+          + f"; phase_cumsum bit-identical across two calls, stream-timed "
+          f"{pc['ms_stream']:.4f} ms; torch.cumsum of the same function "
+          f"{library_ms:.3f} ms"
           f"; dp_std {ms * 1e3 / steps:.3f} us per node step ({steps} "
           f"steps), equal with 16 rows emptied, and on a 3-chunk launch "
           f"{list(deep[4].shape)} ({nn_deep} nodes, win_lo = i - 1900): "

@@ -35,10 +35,10 @@ NVCC_FLAGS = ARCH + [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # table, codes, out, B, S, stream
-    "dc_chain_launch": [_P, _P, _P, _I, ctypes.c_longlong, _P],
-    # x, out, B, S, stream
-    "phase_cumsum_launch": [_P, _P, _I, ctypes.c_longlong, _P],
+    # table, codes, out, scratch, B, S, tiles_per_block, stream
+    "dc_chain_launch": [_P] * 4 + [_I, ctypes.c_longlong, _I, _P],
+    # x, out, scratch, B, S, tiles_per_block, stream
+    "phase_cumsum_launch": [_P] * 3 + [_I, ctypes.c_longlong, _I, _P],
     # ndx, sv, kind4, edge, cs, rsc, usc, st_wt,
     # sp, opv1, val3, t_sv, t_ndx, B, NT, relk, max_overlap, geo_stride,
     # stream

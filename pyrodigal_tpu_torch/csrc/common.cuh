@@ -147,29 +147,3 @@ __device__ __forceinline__ unsigned long long block_exclusive_scan_u64(
 __device__ __forceinline__ int field16(unsigned long long x, int f) {
     return (int)((x >> (16 * f)) & 0xffffULL);
 }
-
-// Exclusive block-wide prefix sum of one float per thread; *total gets the
-// block sum.  Ends with its shared buffer free for reuse.
-template <int THREADS>
-__device__ __forceinline__ float block_exclusive_scan(float x, float* total) {
-    constexpr int WARPS = THREADS / 32;
-    __shared__ float warp_sums[WARPS];
-    int lane = threadIdx.x & 31;
-    int warp = threadIdx.x >> 5;
-    float incl = x;
-    for (int off = 1; off < 32; off <<= 1) {
-        float y = __shfl_up_sync(0xffffffffu, incl, off);
-        if (lane >= off) incl += y;
-    }
-    if (lane == 31) warp_sums[warp] = incl;
-    __syncthreads();
-    float warp_off = 0.0f;
-    float sum = 0.0f;
-    for (int w = 0; w < WARPS; ++w) {
-        if (w < warp) warp_off += warp_sums[w];
-        sum += warp_sums[w];
-    }
-    __syncthreads();
-    *total = sum;
-    return warp_off + (incl - x);
-}

@@ -7,61 +7,104 @@
 // bin): the bin's hexamer table read at the contig's 6-mer codes, a torch
 // gather the caller makes (the lookup the mega route fuses into dc_chain).
 //
-// What bounds it on the H100: memory.  A std launch (B = 128, S = 49,152)
-// reads 25 MB and writes 25 MB, one add per element.  The TPU kernel ran
-// three masked log-shift scans per 2048-lane tile with (B, 3) carries in
-// VMEM scratch across its sequential grid, to avoid the (B, S/3, 3)
-// relayout; none of that carries over.
+// What bounds it on the H100: bytes.  A std launch (B = 128, S = 49,152)
+// must read 25.2 MB and write 25.2 MB: 15.0 us at 3.35 TB/s, against
+// 0.1 us for its 6.3 M adds at the f32 rate.  The TPU kernel ran three
+// masked log-shift scans per 2048-lane tile with (B, 3) carries in VMEM
+// scratch across its sequential grid; none of that carries over.
 //
-// Design: dc_chain.cu's without the table: one block per (phase, row)
-// walks its phase's S/3 positions in chunks of THREADS * ITEMS; each thread
-// sums ITEMS consecutive same-phase elements, a block scan of the thread
-// sums gives exclusive offsets, and a register carries the running total
-// across chunks.  The summation order differs from a sequential cumsum,
-// so results agree with it up to f32 rounding, as the TPU kernel's did
-// (star_pallas.py:271-273).  Accesses are strided by 3 elements; coalescing
-// them is later work.
+// Design (phase_scan.cuh): tiles of 3,072 positions, one block per (row,
+// chunk of tiles), so a std launch runs 128 x 8 = 1,024 blocks on the 132
+// SMs.  Loads and stores are float4, thread t on the t-th 16 bytes; a
+// shared-memory copy of the tile hands each thread 12 consecutive
+// positions, so the three phases need no stride.  The carry across tiles
+// is reduce-then-scan: a first kernel writes each chunk's phase totals to
+// a (B, chunks, 3) scratch, the scan kernel sums its chunk's predecessors
+// in a fixed order, so results are bit-identical from call to call.  The
+// second pass reads x again (from L2 where it still lies): 75 MB moved
+// for the 50 MB the bound counts.  A row that is not 16-byte aligned
+// (S % 4 != 0) and the ragged last tile take coalesced 4-byte accesses.
 
-#include "common.cuh"
+#include "phase_scan.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int ITEMS = 4;
+using namespace phase_scan;
 
-__global__ void phase_cumsum_kernel(const float* __restrict__ x,
-                                    float* __restrict__ out, long long S) {
-    const int phase = blockIdx.x;
-    const long long b = blockIdx.y;
-    const long long K = (S - phase + 2) / 3;    // positions phase + 3m < S
-    const float* xr = x + b * S;
-    float* row = out + b * S;
-    float carry = 0.0f;
-    for (long long base = 0; base < K; base += (long long)THREADS * ITEMS) {
-        const long long m0 = base + (long long)threadIdx.x * ITEMS;
-        float v[ITEMS];
-        float s = 0.0f;
-        for (int q = 0; q < ITEMS; ++q) {
-            long long m = m0 + q;
-            s += m < K ? xr[phase + 3 * m] : 0.0f;
-            v[q] = s;
-        }
-        float total;
-        float excl = block_exclusive_scan<THREADS>(s, &total);
-        float off = carry + excl;
-        for (int q = 0; q < ITEMS; ++q) {
-            long long m = m0 + q;
-            if (m < K) row[phase + 3 * m] = off + v[q];
-        }
-        carry += total;
+struct Values {
+    using Vec = float4;
+    const float* xr;        // the row
+
+    __device__ __forceinline__ bool vec() const { return aligned16(xr); }
+    __device__ __forceinline__ void load(float4 (&v)[SLOTS],
+                                         long long p0) const {
+        const float4* s4 = reinterpret_cast<const float4*>(xr + p0);
+#pragma unroll
+        for (int k = 0; k < SLOTS; ++k) v[k] = s4[threadIdx.x + k * THREADS];
     }
+    __device__ __forceinline__ void put(float* buf,
+                                        const float4 (&v)[SLOTS]) const {
+        float4* b4 = reinterpret_cast<float4*>(buf);
+#pragma unroll
+        for (int k = 0; k < SLOTS; ++k) b4[threadIdx.x + k * THREADS] = v[k];
+    }
+    __device__ __forceinline__ void add(float (&acc)[1][3],
+                                        const float4 (&v)[SLOTS]) const {
+#pragma unroll
+        for (int k = 0; k < SLOTS; ++k) add_slot(acc[0], k, v[k]);
+    }
+    __device__ __forceinline__ void add_one(float (&acc)[1][3], int m,
+                                            long long p) const {
+        acc[0][m] += xr[p];
+    }
+    __device__ __forceinline__ float value(long long p) const {
+        return xr[p];
+    }
+};
+
+__global__ void __launch_bounds__(THREADS) phase_cumsum_reduce_kernel(
+        const float* __restrict__ x, float* __restrict__ scratch, long long S,
+        int tpb, long long chunks) {
+    __shared__ float red[3 * WARPS];
+    const int b = blockIdx.x;
+    const int c = blockIdx.y;
+    float tot[3];
+    reduce_chunk<1>(Values{x + (long long)b * S}, c, tpb, tot, red);
+    if (threadIdx.x == 0)
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+            scratch[((long long)b * chunks + c) * 3 + k] = tot[k];
+}
+
+__global__ void __launch_bounds__(THREADS) phase_cumsum_kernel(
+        const float* __restrict__ x, float* __restrict__ out,
+        const float* __restrict__ scratch, long long S, int tpb,
+        long long chunks) {
+    __shared__ __align__(16) float buf[2][TILE];
+    __shared__ ScanSmem sm;
+    const int b = blockIdx.x;
+    scan_chunk(Values{x + (long long)b * S},
+               scratch + (long long)b * chunks * 3, out + (long long)b * S,
+               S, blockIdx.y, tpb, buf, sm);
 }
 
 }  // namespace
 
-extern "C" int phase_cumsum_launch(const float* x, float* out, int B,
-                                   long long S, cudaStream_t stream) {
-    dim3 grid(3, B);
-    phase_cumsum_kernel<<<grid, THREADS, 0, stream>>>(x, out, S);
+extern "C" int phase_cumsum_launch(const float* x, float* out,
+                                   float* scratch, int B, long long S,
+                                   int tiles_per_block, cudaStream_t stream) {
+    using namespace phase_scan;
+    long long chunks;
+    int err = check_launch(B, S, tiles_per_block, &chunks);
+    if (err != 0) return err;
+    if (chunks > 1) {
+        phase_cumsum_reduce_kernel<<<dim3(B, chunks - 1), THREADS, 0,
+                                     stream>>>(x, scratch, S,
+                                               tiles_per_block, chunks);
+        err = (int)cudaGetLastError();
+        if (err != 0) return err;
+    }
+    phase_cumsum_kernel<<<dim3(B, chunks), THREADS, 0, stream>>>(
+        x, out, scratch, S, tiles_per_block, chunks);
     return (int)cudaGetLastError();
 }

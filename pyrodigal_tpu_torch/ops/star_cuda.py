@@ -31,6 +31,49 @@ def _stream(device):
 
 
 # --------------------------------------------------------------------------
+# the two phase prefix-sum kernels' launch shape and sum-order bound
+# (csrc/phase_scan.cuh)
+# --------------------------------------------------------------------------
+
+TILE = 3072                 # positions a block scans at once
+THREADS = 256
+TARGET_BLOCKS = 1024        # blocks a launch aims at: ~8 an SM
+MAX_TILES_PER_BLOCK = 16
+U = 2.0 ** -24              # f32 unit roundoff
+
+
+def _chunking(B, S):
+    """(tiles per block, chunks per row) of a prefix-sum launch over B
+    rows of S positions: as few tiles a block as give about TARGET_BLOCKS
+    blocks."""
+    T = -(-S // TILE)
+    tpb = min(MAX_TILES_PER_BLOCK, max(1, -(-B * T // TARGET_BLOCKS)))
+    return tpb, -(-T // tpb)
+
+
+def sum_order_depth(B, S):
+    """The most additions on a path from an input to an output of a
+    prefix-sum kernel launched at (B, S) (csrc/phase_scan.cuh): 4 a phase
+    a tile chained over the chunk's tpb tiles and an 8-level block tree
+    (the chunk totals), a chain of ceil(chunks / THREADS) and an 8-level
+    tree (the chunk's carry), the tpb tile totals the carry passes
+    through, and 2 adds into the output."""
+    tpb, chunks = _chunking(B, S)
+    return 5 * tpb + 18 + -(-chunks // THREADS)
+
+
+def sum_order_bound(x_abs, ref):
+    """How far the kernel's f32 prefix sums may lie from the plain twin's
+    (`ref`, f64 rounded once): depth x u x (the phase prefix sum of
+    |x|, `x_abs` (B, S)) for the kernel's additions, + u |ref| for the
+    twin's one rounding.  Float64, (B, S)."""
+    B, S = x_abs.shape
+    cabs = phase_cumsum_plain(x_abs.double(), rounded=False)
+    return (sum_order_depth(B, S) * U * cabs
+            + U * ref.double().abs())
+
+
+# --------------------------------------------------------------------------
 # dc-chain: per-bin hexamer lookup + per-phase prefix sum
 # --------------------------------------------------------------------------
 
@@ -53,11 +96,14 @@ def dc_phase_cumsum(table, codes):
     _check(codes, torch.int32, (S,), "codes")
     if codes.device != table.device:
         raise ValueError("codes and table on different devices")
+    tpb, chunks = _chunking(B, S)
     out = torch.empty((B, S), dtype=torch.float32, device=table.device)
+    scratch = torch.empty((B, chunks, 3), dtype=torch.float32,
+                          device=table.device)
     lib = _build.lib()
     _build.check(lib.dc_chain_launch(
-        table.data_ptr(), codes.data_ptr(), out.data_ptr(), B, S,
-        _stream(table.device)), "dc_chain")
+        table.data_ptr(), codes.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), B, S, tpb, _stream(table.device)), "dc_chain")
     LAUNCHES["dc_chain"] += 1
     return out
 
@@ -66,13 +112,14 @@ def dc_phase_cumsum(table, codes):
 # phase cumsum: per-phase prefix sum of values already looked up
 # --------------------------------------------------------------------------
 
-def phase_cumsum_plain(x):
+def phase_cumsum_plain(x, rounded=True):
     """`out[b, p]` = sum of `x[b, q]` over q <= p, q = p mod 3, summed in
-    float64 and rounded once."""
+    float64 and rounded once (left in float64 if not `rounded`)."""
     B, S = x.shape
     pad = (-S) % 3
     xp = torch.nn.functional.pad(x.double(), (0, pad)).reshape(B, -1, 3)
-    return xp.cumsum(1).reshape(B, -1)[:, :S].float()
+    out = xp.cumsum(1).reshape(B, -1)[:, :S]
+    return out.float() if rounded else out
 
 
 def phase_cumsum(x):
@@ -82,11 +129,14 @@ def phase_cumsum(x):
         return phase_cumsum_plain(x)
     B, S = x.shape
     _check(x, torch.float32, (B, S), "x")
+    tpb, chunks = _chunking(B, S)
     out = torch.empty_like(x)
+    scratch = torch.empty((B, chunks, 3), dtype=torch.float32,
+                          device=x.device)
     lib = _build.lib()
     _build.check(lib.phase_cumsum_launch(
-        x.data_ptr(), out.data_ptr(), B, S, _stream(x.device)),
-        "phase_cumsum")
+        x.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, S, tpb,
+        _stream(x.device)), "phase_cumsum")
     LAUNCHES["phase_cumsum"] += 1
     return out
 

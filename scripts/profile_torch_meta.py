@@ -19,7 +19,8 @@ contigs of lognormal length, plus KK037166; the std route):
    contig;
 3. one warm pass under `torch.profiler` (CPU and CUDA activity): device
    time by kernel name (`key_averages()`, self device time; the TOP
-   largest), the total, and the device's busy share of that pass.
+   largest, and every kernel of `csrc/` apart), the total, and the
+   device's busy share of that pass.
 
 Prints one line per part and set and, last, the whole record as one JSON
 line; `--out` also writes that record to a file.  Imports no jax.
@@ -36,6 +37,9 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PASSES = 5
 TOP = 12
+# entry functions of csrc/*.cu, listed apart from the top TOP
+PORT_KERNELS = ("dc_chain_", "phase_cumsum_", "star_kernel", "dp_mega_kernel",
+                "dp_std_kernel")
 
 
 def _sync_time(fn):
@@ -149,7 +153,11 @@ def profiled_pass(finder, seqs, top):
     return {"wall_s": wall, "device_ms": device_ms,
             "busy": device_ms / 1e3 / wall,
             "kernels": [{"name": k, "calls": n, "self_device_ms": ms}
-                        for k, n, ms in rows[:top]]}
+                        for k, n, ms in rows[:top]],
+            # the port's own kernels (csrc/*.cu), whatever their rank
+            "port_kernels": [{"name": k, "calls": n, "self_device_ms": ms}
+                             for k, n, ms in rows if "_kernel" in k
+                             and any(e in k for e in PORT_KERNELS)]}
 
 
 def profile_set(finder, runner, seqs):

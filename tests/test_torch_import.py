@@ -26,7 +26,8 @@ def test_port_sources_never_import_jax():
     sources = list(PKG.rglob("*.py")) + [
         pathlib.Path(REPO, "chip_smoke.py"),
         pathlib.Path(REPO, "scripts", "profile_torch_meta.py"),
-        pathlib.Path(REPO, "scripts", "ab_dp_kernels.py")]
+        pathlib.Path(REPO, "scripts", "ab_dp_kernels.py"),
+        pathlib.Path(REPO, "scripts", "ab_prefix_kernels.py")]
     assert len(sources) >= 17
     offenders = [str(p) for p in sources
                  if FORBIDDEN.search(p.read_text())]

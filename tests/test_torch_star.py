@@ -249,8 +249,9 @@ def test_per_row_star_plain_matches_reference(per_row_reference):
 @pytest.mark.cuda
 @needs_bins
 def test_dc_chain_kernel_matches_plain(inputs, cuda_device):
-    """Kernel against plain on the card: the kernel's summation depth is
-    ITEMS + log2(THREADS) + one carry add per 1024-element chunk."""
+    """Kernel against plain on the card, on the 30 kb geometry's two code
+    rows, within the kernels' sum-order bound (`star_cuda.sum_order_bound`:
+    their tiles, block scan and carry across tiles)."""
     table = _t(inputs["table"], cuda_device)
     before = star_cuda.LAUNCHES["dc_chain"]
     for strand in ("m6f", "m6r"):
@@ -258,11 +259,8 @@ def test_dc_chain_kernel_matches_plain(inputs, cuda_device):
         got = star_cuda.dc_phase_cumsum(table, codes)
         ref = star_cuda.dc_phase_cumsum_plain(table, codes)
         torch.cuda.synchronize()
-        x = table[:, codes.long()].double().abs()
-        B, S = x.shape
-        cabs = x.reshape(B, -1, 3).cumsum(1).reshape(B, S)
-        depth = 4 + 8 + math.ceil(S / 3 / 1024) + 1
-        bound = depth * U * cabs + U * ref.double().abs()
+        bound = star_cuda.sum_order_bound(
+            table[:, codes.long()].abs(), ref)
         assert ((got.double() - ref.double()).abs() <= bound).all()
     assert star_cuda.LAUNCHES["dc_chain"] == before + 2
 
@@ -271,8 +269,8 @@ def test_dc_chain_kernel_matches_plain(inputs, cuda_device):
 @needs_bins
 def test_phase_cumsum_kernel_matches_plain(inputs, cuda_device):
     """Kernel against plain on the card, per-row looked-up dc values of
-    the 30 kb geometry's two code rows: the same summation-depth bound as
-    dc-chain's."""
+    the 30 kb geometry's two code rows, within the kernel's sum-order
+    bound."""
     table = _t(inputs["table"], cuda_device)
     before = star_cuda.LAUNCHES["phase_cumsum"]
     for strand in ("m6f", "m6r"):
@@ -280,12 +278,114 @@ def test_phase_cumsum_kernel_matches_plain(inputs, cuda_device):
         got = star_cuda.phase_cumsum(x)
         ref = star_cuda.phase_cumsum_plain(x)
         torch.cuda.synchronize()
-        B, S = x.shape
-        cabs = x.double().abs().reshape(B, -1, 3).cumsum(1).reshape(B, S)
-        depth = 4 + 8 + math.ceil(S / 3 / 1024) + 1
-        bound = depth * U * cabs + U * ref.double().abs()
+        bound = star_cuda.sum_order_bound(x.abs(), ref)
         assert ((got.double() - ref.double()).abs() <= bound).all()
     assert star_cuda.LAUNCHES["phase_cumsum"] == before + 2
+
+
+TILE = star_cuda.TILE
+# every tile edge, S % 3 and S % 4, several chunks, and (200 TILE + 5):
+# chunks of several tiles
+EDGE_S = [1, 2, 3, TILE - 1, TILE, TILE + 1, 3 * TILE + 2, 200 * TILE + 5]
+
+
+def _prefix_case(B, S, seed):
+    """dc-score-sized tables and 6-mer codes in [0, 4096) from a seed."""
+    rng = np.random.default_rng(seed)
+    table = rng.normal(0.0, 0.5, (B, 4096)).astype(np.float32)
+    codes = rng.integers(0, 4096, S + 1).astype(np.int32)
+    return table, codes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("S", EDGE_S)
+def test_dc_chain_kernel_edges(B, S, cuda_device):
+    """Every tile edge against plain, within the sum-order bound; the
+    codes once 16-byte aligned and once offset by one element (the
+    kernel's 4-byte path)."""
+    table, codes = _prefix_case(B, S, S)
+    table = _t(table, cuda_device)
+    before = star_cuda.LAUNCHES["dc_chain"]
+    for off in (0, 1):
+        c = _t(codes, cuda_device)[off:off + S]
+        got = star_cuda.dc_phase_cumsum(table, c)
+        ref = star_cuda.dc_phase_cumsum_plain(table, c)
+        torch.cuda.synchronize()
+        assert got.shape == (B, S) and torch.isfinite(got).all()
+        bound = star_cuda.sum_order_bound(
+            table[:, c.long()].abs(), ref)
+        assert ((got.double() - ref.double()).abs() <= bound).all()
+    assert star_cuda.LAUNCHES["dc_chain"] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("S", EDGE_S)
+def test_phase_cumsum_kernel_edges(B, S, cuda_device):
+    """Every tile edge against plain, within the sum-order bound (rows of
+    S % 4 != 0 take the kernel's 4-byte path)."""
+    table, codes = _prefix_case(B, S, S)
+    x = _t(table[:, codes[:S]], cuda_device).contiguous()
+    before = star_cuda.LAUNCHES["phase_cumsum"]
+    got = star_cuda.phase_cumsum(x)
+    ref = star_cuda.phase_cumsum_plain(x)
+    torch.cuda.synchronize()
+    assert got.shape == (B, S) and torch.isfinite(got).all()
+    bound = star_cuda.sum_order_bound(x.abs(), ref)
+    assert ((got.double() - ref.double()).abs() <= bound).all()
+    assert star_cuda.LAUNCHES["phase_cumsum"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["dc_chain", "phase_cumsum"])
+def test_prefix_kernels_are_deterministic(kernel, cuda_device):
+    """Two calls on the same inputs give the same bits: the carry across
+    tiles is summed in a fixed order."""
+    B, S = 16, 200 * TILE + 5
+    table, codes = _prefix_case(B, S, 7)
+    table, codes = _t(table, cuda_device), _t(codes[:S], cuda_device)
+    if kernel == "dc_chain":
+        def run():
+            return star_cuda.dc_phase_cumsum(table, codes)
+    else:
+        x = table[:, codes.long()].contiguous()
+
+        def run():
+            return star_cuda.phase_cumsum(x)
+    before = star_cuda.LAUNCHES[kernel]
+    assert torch.equal(run(), run())
+    assert star_cuda.LAUNCHES[kernel] == before + 2
+
+
+@pytest.mark.parametrize("B,S", [(1, 1), (16, 30000), (128, 49152),
+                                 (16, 2555904), (24, 4718592)])
+def test_prefix_chunking_covers_every_tile(B, S):
+    """The launch shape the wrappers hand the kernels: every tile in one
+    chunk, at most MAX_TILES_PER_BLOCK tiles a block, a grid the card
+    takes; and the depth of the kernels' sums (csrc/phase_scan.cuh)."""
+    tpb, chunks = star_cuda._chunking(B, S)
+    T = -(-S // TILE)
+    assert 1 <= tpb <= star_cuda.MAX_TILES_PER_BLOCK
+    assert (chunks - 1) * tpb < T <= chunks * tpb
+    assert chunks <= 65535
+    assert star_cuda.sum_order_depth(B, S) == \
+        5 * tpb + 18 + -(-chunks // star_cuda.THREADS)
+
+
+def test_sum_order_bound_holds_for_plain_f32_order():
+    """The bound's own arithmetic on the CPU: a float32 cumsum in
+    sequential order (K = 20 terms a phase) lies within the bound,
+    whose depth is at least K, and the f64 twin within u |ref|."""
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        0.0, 0.5, (4, 3 * 20)).astype(np.float32))
+    ref = star_cuda.phase_cumsum_plain(x)
+    f32 = x.reshape(4, -1, 3).cumsum(1).reshape(4, -1)
+    bound = star_cuda.sum_order_bound(x.abs(), ref)
+    assert star_cuda.sum_order_depth(4, 60) >= 20
+    assert ((f32.double() - ref.double()).abs() <= bound).all()
+    assert ((ref.double() - star_cuda.phase_cumsum_plain(
+        x, rounded=False)).abs() <= star_cuda.U * ref.double().abs()).all()
 
 
 @pytest.mark.cuda
