@@ -14,15 +14,19 @@ Phases, each printing one line:
    phase-cumsum, `torch.cumsum` of the same function.  The two prefix
    sums are held to their sum-order bound (`star_cuda.sum_order_bound`),
    checked bit-identical across two calls, and timed as the mean of 10
-   calls in one CUDA graph.  Mega route: dc-chain (both code rows, and
-   timed at the bench pass's other mega launches) and star on the
-   2.46 Mbp genome; the mega DP
-   timed there and held exactly equal to its twin on the 100 kb contig
-   and on a geometry with no valid node.  Std route, on the first std
-   launch of the short-contig set (128 rows, 49,152 bp, 3,072 nodes):
-   phase-cumsum (both code rows), star with one geometry row per bin row,
-   and the std DP, also exactly equal with 16 rows emptied and on a
-   launch of 40 kb genome slices whose windows reach 3 chunks of 640;
+   calls in one CUDA graph.  Star's pointers and integer tables are held
+   exactly equal to its twin's, its float tables within rtol 1e-6 (and
+   reported bit-equal or not); it is timed in a CUDA graph, as a bare C
+   launch and through its wrapper on the stream, and its stops'
+   candidates are counted (`star_cuda.star_candidates_plain`).  Mega
+   route: dc-chain (both code rows) and star on the 2.46 Mbp genome, both
+   also timed at the bench pass's other mega launches; the mega DP timed
+   there and held exactly equal to its twin on the 100 kb contig and on a
+   geometry with no valid node.  Std route, on the first std launch of
+   the short-contig set (128 rows, 49,152 bp, 3,072 nodes): phase-cumsum
+   (both code rows), star with one geometry row per bin row, and the std
+   DP, also exactly equal with 16 rows emptied and on a launch of 40 kb
+   genome slices whose windows reach 3 chunks of 640;
 3. end to end, `pyrodigal_tpu_torch.GeneFinder(meta=True,
    backend="cuda").find_genes_batch`, each path with the launch counters
    set to 0 just before it and read just after:
@@ -139,6 +143,76 @@ def _launch_ms(fn_name, tensors, dims, reps):
                         torch.cuda.current_stream().cuda_stream), fn_name)
 
     return _time_ms(launch, reps)
+
+
+def _star_check(label, got, ref):
+    """Star outputs against the plain twin's: pointers and integer tables
+    exactly equal, float tables within rtol 1e-6; returns (max abs float
+    error, whether the float tables are bit-equal)."""
+    import torch
+
+    for name, a, b in zip(("star_ptr", "opv1", "val3", "t_sv", "t_ndx"),
+                          got, ref):
+        if a.dtype == torch.int32:
+            if not torch.equal(a, b):
+                raise AssertionError(f"{label} {name}: integers differ")
+        elif not torch.allclose(a, b, rtol=1e-6, atol=1e-5):
+            raise AssertionError(f"{label} {name}: beyond rtol 1e-6")
+    floats = [(a, b) for a, b in zip(got, ref) if a.dtype == torch.float32]
+    return (max(float((a - b).abs().max()) for a, b in floats),
+            all(torch.equal(a, b) for a, b in floats))
+
+
+def _star_timed(args):
+    """The star kernel on `args` (star_tables' arguments): the mean of 10
+    calls in one CUDA graph (`ms`), of 10 bare C launches on preallocated
+    outputs (`ms_launch`), and of 10 wrapper calls on the stream
+    (`ms_stream`: host launch cost included)."""
+    import torch
+
+    from pyrodigal_tpu_torch import _build
+    from pyrodigal_tpu_torch.ops import star_cuda
+
+    B, NT = args[4].shape
+    R = args[0].shape[0]
+    outs = [torch.empty((3, B, NT), dtype=dt, device=args[4].device)
+            for dt in (torch.int32, torch.float32, torch.float32,
+                       torch.int32, torch.int32)]
+    fn = _build.lib().star_launch
+
+    def launch():
+        _build.check(fn(*(a.data_ptr() for a in args[:8]),
+                        *(o.data_ptr() for o in outs), B, NT, args[8],
+                        args[9], 0 if R == 1 else NT, star_cuda.STAR_TILE,
+                        star_cuda._star_rows(B, R),
+                        torch.cuda.current_stream().cuda_stream), "star")
+
+    return {"ms": _graph_ms(lambda: star_cuda.star_tables(*args), 10),
+            "ms_launch": _time_ms(launch, 10),
+            "ms_stream": _time_ms(lambda: star_cuda.star_tables(*args), 10)}
+
+
+def _star_work(args, got):
+    """What the star kernel's run on `args` needs: the candidates each
+    stop walks (`star_candidates_plain`: mean and most per stop over the
+    geometry rows), and its bound: the bytes it reads and writes, or
+    LANE_OPS a candidate and bin row, the larger."""
+    from pyrodigal_tpu_torch.ops import star_cuda
+
+    ndx, sv, kind4, edge = args[:4]
+    B = args[4].shape[0]
+    masks = star_cuda.star_candidates_plain(ndx, sv, kind4, edge, args[8],
+                                            args[9])
+    k = kind4 & 7
+    stops = ((k == 1) | (k == 3)) & (edge == 0)
+    count = sum((masks >> b) & 1 for b in range(args[8]))[stops]
+    rows = B // ndx.shape[0]            # bin rows a geometry row serves
+    n_cand = int(count.sum()) * rows
+    return {"stops": int(stops.sum()),
+            "candidates_per_stop_mean": float(count.double().mean()),
+            "candidates_per_stop_max": int(count.max()),
+            "bound": _bound(_nbytes(*args[:8]), _nbytes(*got),
+                            n_cand * LANE_OPS)}
 
 
 def _records(path):
@@ -310,6 +384,23 @@ def _scores(runner, geo, bin_idx):
     return sd._score_items(runner.tables.as_tuple(), geo, bin_idx,
                            is_meta=True, closed=False,
                            has_nonsd=runner.tables.any_nonsd)
+
+
+def _mega_star_args(runner, geo, bin_idx):
+    """star_tables' arguments for one mega launch, as
+    `score_device.score_dp_launch_mega` builds them (scoring on the
+    card)."""
+    from pyrodigal_tpu_torch.ops import dp_cuda
+    from pyrodigal_tpu_torch.ops.meta_cuda import RELK
+
+    (ndx, stop_val, typ, strand, _win_lo, valid, edge,
+     cscore, ssc, rsc, usc, stw) = _scores(runner, geo, bin_idx)
+    kind4 = dp_cuda.mega_geometry(ndx[0], stop_val[0], typ[0], strand[0],
+                                  valid[0], "loc" in geo)[0]
+    return (ndx.contiguous(), stop_val.contiguous(), kind4[None],
+            edge.contiguous(), (cscore + ssc).contiguous(),
+            rsc.contiguous(), usc.contiguous(), stw.contiguous(), RELK,
+            runner.max_overlap)
 
 
 def _mega_dp_args(runner, seq_str):
@@ -496,8 +587,8 @@ def phase_kernels(runner):
         lambda t, c: t[:, c.long()].abs(),
         lambda t, c: _bound(_nbytes(t, c), t.shape[0] * c.shape[0] * 4,
                             t.shape[0] * c.shape[0]))
-    later = []
-    for lgeo, lbins in _later_mega_launches(runner):
+    later, later_launches = [], _later_mega_launches(runner)
+    for lgeo, lbins in later_launches:
         ltable = runner.tables.gene_dc[lbins].contiguous()
         lcodes = sd._derive_m6(lgeo)[0][0]
         later.append({
@@ -507,7 +598,7 @@ def phase_kernels(runner):
             "bound_ms": _bound(_nbytes(ltable, lcodes),
                                ltable.shape[0] * lcodes.shape[0] * 4,
                                ltable.shape[0] * lcodes.shape[0])[0]})
-        del lgeo, ltable, lcodes
+        del ltable, lcodes
     # two calls a launch (Cf, Cr)
     per_pass = 2 * (dc["ms"] + sum(x["ms"] for x in later))
     bound_pass = 2 * (dc["bound_ms"] + sum(x["bound_ms"] for x in later))
@@ -530,23 +621,35 @@ def phase_kernels(runner):
             stw.contiguous(), RELK, runner.max_overlap)
     got = star_cuda.star_tables(*args)
     ref = star_cuda.star_tables_plain(*args)
-    for name, a, b in zip(("star_ptr", "opv1", "val3", "t_sv", "t_ndx"),
-                          got, ref):
-        if a.dtype == torch.int32:
-            if not torch.equal(a, b):
-                raise AssertionError(f"star {name}: integers differ")
-        elif not torch.allclose(a, b, rtol=1e-6, atol=1e-5):
-            raise AssertionError(f"star {name}: beyond rtol 1e-6")
-    star_err = max(float((a - b).abs().max()) for a, b in zip(got, ref)
-                   if a.dtype == torch.float32)
-    ms = _time_ms(lambda: star_cuda.star_tables(*args), 10)
+    star_err, star_bits = _star_check("star", got, ref)
+    del ref
+    star = _star_timed(args)
     plain_ms = _time_ms(lambda: star_cuda.star_tables_plain(*args), 3)
-    n_stops = int(((geometry[0] == 1) | (geometry[0] == 3)).sum())
+    work = _star_work(args, got)
+    # the bench pass's later mega launches: timed in a CUDA graph
+    star_later = []
+    for lgeo, lbins in later_launches:
+        largs = _mega_star_args(runner, lgeo, lbins)
+        lgot = star_cuda.star_tables(*largs)
+        star_later.append({
+            "shape": list(largs[4].shape),
+            "ms": _graph_ms(lambda: star_cuda.star_tables(*largs), 10),
+            "bound_ms": _star_work(largs, lgot)["bound"][0]})
+        del largs, lgot
+    del later_launches
+    star_pass = star["ms"] + sum(x["ms"] for x in star_later)
+    star_bound_pass = work["bound"][0] + sum(x["bound_ms"]
+                                             for x in star_later)
     out.append(_record(
         "star", "pyrodigal_tpu_torch/csrc/star.cu",
-        "pyrodigal_tpu/ops/star_pallas.py:40", [B, NT], star_err, ms,
-        plain_ms, _bound(_nbytes(*args[:8]), _nbytes(*got),
-                         B * n_stops * RELK * LANE_OPS)))
+        "pyrodigal_tpu/ops/star_pallas.py:40", [B, NT], star_err,
+        star["ms"], plain_ms, work["bound"],
+        ms_launch=star["ms_launch"], ms_stream=star["ms_stream"],
+        float_bit_equal=star_bits, stops=work["stops"],
+        candidates_per_stop_mean=work["candidates_per_stop_mean"],
+        candidates_per_stop_max=work["candidates_per_stop_max"],
+        later_launches=star_later, ms_bench_pass=star_pass,
+        bound_ms_bench_pass=star_bound_pass))
 
     # the DP at the genome's shape: timed, and its µs per node step
     genome_dp = (ndx[0].contiguous(), stop_val[0].contiguous(), geometry[0],
@@ -559,7 +662,7 @@ def phase_kernels(runner):
     bound_genome = _bound(_nbytes(*genome_dp[:-1]), 4 * B * NT * 4,
                           B * _mega_lanes(*(genome_dp[k] for k in (2, 0, 3, 4, 5, 6)))
                           * LANE_OPS)
-    del genome_dp, got, ref, args, cs, cscore, ssc, rsc, usc
+    del genome_dp, got, args, cs, cscore, ssc, rsc, usc
 
     # -- mega DP on the 100 kb contig (NT = 16,384), then on a geometry
     # with no valid node; all four outputs exactly equal ------------------
@@ -592,7 +695,16 @@ def phase_kernels(runner):
         for k in out) + f"; dp_mega at [16, 163840]: {dp_genome_ms:.2f} ms "
         f"= {dp_genome_ms * 1e3 / steps_genome:.3f} us per node step "
         f"({steps_genome} steps); dp_mega equal on 100 kb "
-        f"({steps} steps) and on a geometry with no valid node; dc_chain "
+        f"({steps} steps) and on a geometry with no valid node; star: "
+        f"graph {star['ms']:.4f} ms, bare launch {star['ms_launch']:.4f} "
+        f"ms, wrapper on the stream {star['ms_stream']:.4f} ms, float "
+        f"tables bit-equal to plain: {star_bits}, {work['stops']} stops, "
+        f"candidates per stop mean {work['candidates_per_stop_mean']:.3f} "
+        f"max {work['candidates_per_stop_max']}, at the later mega "
+        f"launches " + ", ".join(
+            f"{x['shape']} {x['ms']:.4f} ms (bound {x['bound_ms']:.4f})"
+            for x in star_later) + f", {star_pass:.4f} ms a bench pass "
+        f"(bound {star_bound_pass:.4f}); dc_chain "
         f"bit-identical across two calls, stream-timed {dc['ms_stream']:.4f} "
         f"ms, at the later mega launches " + ", ".join(
             f"{x['shape']} {x['ms']:.4f} ms (bound {x['bound_ms']:.4f})"
@@ -652,7 +764,6 @@ def phase_kernels_std(runner, contigs):
 
     from pyrodigal_tpu_torch.ops import dp_cuda, score_device as sd
     from pyrodigal_tpu_torch.ops import star_cuda
-    from pyrodigal_tpu_torch.ops.meta_cuda import RELK
     from pyrodigal_tpu_torch.sequence import Sequence
 
     work, geoms = _first_std_launch(runner, contigs)
@@ -683,28 +794,26 @@ def phase_kernels_std(runner, contigs):
 
     # -- star with one geometry row per bin row --------------------------
     got = tables
-    ref = star_cuda.star_tables_plain(*sargs)
-    for name, a, b in zip(("star_ptr", "opv1", "val3", "t_sv", "t_ndx"),
-                          got, ref):
-        if a.dtype == torch.int32:
-            if not torch.equal(a, b):
-                raise AssertionError(f"per-row star {name}: integers differ")
-        elif not torch.allclose(a, b, rtol=1e-6, atol=1e-5):
-            raise AssertionError(f"per-row star {name}: beyond rtol 1e-6")
+    star_err, star_bits = _star_check("per-row star", got,
+                                      star_cuda.star_tables_plain(*sargs))
     if int((got[0] != -1).sum()) == 0:
         raise AssertionError("per-row star: no pointer set")
-    star_err = max(float((a - b).abs().max()) for a, b in zip(got, ref)
-                   if a.dtype == torch.float32)
-    star_ms = _time_ms(lambda: star_cuda.star_tables(*sargs), 10)
+    timed = _star_timed(sargs)
     star_plain_ms = _time_ms(lambda: star_cuda.star_tables_plain(*sargs), 3)
+    work = _star_work(sargs, got)
     kind4 = dargs[2]
-    n_stops = int(((kind4 == 1) | (kind4 == 3)).sum())
-    star_bound = _bound(_nbytes(*sargs[:8]), _nbytes(*got),
-                        n_stops * RELK * LANE_OPS)
-    star = {"max_abs_err_per_row": star_err, "ms_per_row": star_ms,
+    star = {"max_abs_err_per_row": star_err, "ms_per_row": timed["ms"],
+            "ms_launch_per_row": timed["ms_launch"],
+            "ms_stream_per_row": timed["ms_stream"],
             "plain_ms_per_row": star_plain_ms, "shape_per_row": [BT, n],
-            "bound_ms_per_row": star_bound[0],
-            "bound_by_per_row": star_bound[1]}
+            "bound_ms_per_row": work["bound"][0],
+            "bound_by_per_row": work["bound"][1],
+            "float_bit_equal_per_row": star_bits,
+            "stops_per_row": work["stops"],
+            "candidates_per_stop_mean_per_row":
+                work["candidates_per_stop_mean"],
+            "candidates_per_stop_max_per_row":
+                work["candidates_per_stop_max"]}
 
     # -- the std DP: all four outputs exactly equal -----------------------
     got = dp_cuda.std_dp(*dargs)
@@ -760,9 +869,14 @@ def phase_kernels_std(runner, contigs):
           f"steps), equal with 16 rows emptied, and on a 3-chunk launch "
           f"{list(deep[4].shape)} ({nn_deep} nodes, win_lo = i - 1900): "
           f"kernel {deep_ms:.3f} ms, plain {plain_deep_ms:.1f} ms"
-          f"; per-row star {star['shape_per_row']}: kernel "
-          f"{star_ms:.3f} ms, plain {star_plain_ms:.3f} ms, max abs err "
-          f"{star_err:.3g}; kernels the mean of 10 calls, plain "
+          f"; per-row star {star['shape_per_row']}: graph "
+          f"{timed['ms']:.4f} ms, bare launch {timed['ms_launch']:.4f} ms, "
+          f"wrapper on the stream {timed['ms_stream']:.4f} ms, plain "
+          f"{star_plain_ms:.3f} ms, bound {work['bound'][0]:.4f} ms, max abs "
+          f"err {star_err:.3g}, float tables bit-equal to plain: "
+          f"{star_bits}, {work['stops']} stops, candidates per stop mean "
+          f"{work['candidates_per_stop_mean']:.3f} max "
+          f"{work['candidates_per_stop_max']}; kernels the mean of 10 calls, plain "
           f"phase-cumsum, star and torch.cumsum of 3, the plain DPs one "
           f"host-timed call", flush=True)
     return out, star

@@ -41,8 +41,8 @@ _SIGNATURES = {
     "phase_cumsum_launch": [_P] * 3 + [_I, ctypes.c_longlong, _I, _P],
     # ndx, sv, kind4, edge, cs, rsc, usc, st_wt,
     # sp, opv1, val3, t_sv, t_ndx, B, NT, relk, max_overlap, geo_stride,
-    # stream
-    "star_launch": [_P] * 13 + [_I] * 5 + [_P],
+    # tile, rows_per_block, stream
+    "star_launch": [_P] * 13 + [_I] * 7 + [_P],
     # ndx, sv, kind4, win_lo, ovlo, has_ov, tile_nn, cs, rsc, usc,
     # opv1, val3, t_sv, t_ndx, st_wt, score, traceb, ov, tbndx,
     # B, NT, fxs, stream

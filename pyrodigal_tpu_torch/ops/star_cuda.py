@@ -145,6 +145,67 @@ def phase_cumsum(x):
 # star sweep + star tables
 # --------------------------------------------------------------------------
 
+STAR_TILE = 128       # nodes a block of the star kernel takes (csrc/star.cu)
+STAR_ROWS = 8         # bin rows a block sweeps over one shared geometry row
+STAR_MAX_RELK = 32    # steps the kernel's 32-bit candidate mask holds
+
+
+def _star_rows(B, R):
+    """Bin rows a block of the star kernel takes: up to STAR_ROWS over a
+    shared geometry row (R = 1: its candidate masks built once for all of
+    them), one where each row has its own geometry."""
+    return min(B, STAR_ROWS) if R == 1 else 1
+
+
+def _shifted(a, d):
+    """a[..., i + d] at column i (zero outside; masked by j bounds)."""
+    NT = a.shape[-1]
+    out = torch.zeros_like(a)
+    if d >= 0:
+        out[..., :NT - d] = a[..., d:]
+    else:
+        out[..., -d:] = a[..., :NT + d]
+    return out
+
+
+def star_candidates_plain(ndx, stop_val, kind4, edge, relk, max_overlap):
+    """The star kernel's candidate masks: (R, NT) int64 from (R, NT)
+    geometry rows, bit k set where step k of the node's own walk (a
+    forward stop's j = i + 3 - k, a reverse stop's j = i - 3 + k) passes
+    every geometry test of the sweep -- j in range, a start of the stop's
+    strand, within max_overlap bp, whose own stop lies past this one.
+    Non-stops and edge stops get 0.  Walking the set bits in ascending
+    order with cs[j] + igm is the sweep of `star_tables_plain`."""
+    if not 1 <= relk <= STAR_MAX_RELK:
+        raise ValueError(f"relk {relk} outside [1, {STAR_MAX_RELK}]")
+    NT = ndx.shape[-1]
+    kind = kind4 & 7
+    edgeb = edge != 0
+    fstop = (kind == 1) & ~edgeb
+    rstop = (kind == 3) & ~edgeb
+    iidx = torch.arange(NT, device=ndx.device)
+    mo = max_overlap
+    mask = torch.zeros(ndx.shape, dtype=torch.int64, device=ndx.device)
+    for k in range(relk):
+        bits = torch.zeros(ndx.shape, dtype=torch.bool, device=ndx.device)
+        # step k of a forward stop's walk, then of a reverse stop's
+        for d, stop, fwd in ((3 - k, fstop, True), (k - 3, rstop, False)):
+            j = iidx + d
+            ndx_j, kind_j, sv_j = (_shifted(a, d) for a in (ndx, kind,
+                                                            stop_val))
+            strj = torch.where(kind_j < 2, 1, -1)
+            if fwd:
+                okd = ((strj == 1) & (ndx_j <= ndx + 2)
+                       & (ndx_j + mo >= ndx) & (sv_j > ndx))
+            else:
+                okd = ((strj == -1) & (ndx_j >= ndx - 2)
+                       & (ndx_j - mo <= ndx) & (sv_j < ndx))
+            bits |= (stop & (j >= 0) & (j < NT) & (kind_j != 4)
+                     & (kind_j != 1) & (kind_j != 3) & okd)
+        mask |= bits.to(torch.int64) << k
+    return mask
+
+
 def star_tables_plain(ndx, stop_val, kind4, edge, cs, rsc, usc, st_wt,
                       relk, max_overlap):
     """Plain version of `star_tables`: the same sweep, vectorised over
@@ -159,15 +220,6 @@ def star_tables_plain(ndx, stop_val, kind4, edge, cs, rsc, usc, st_wt,
     stw = st_wt[:, None]
     iidx = torch.arange(NT, device=dev)
 
-    def shifted(a, d):
-        """a[..., i + d] at column i (zero outside; masked by j bounds)."""
-        out = torch.zeros_like(a)
-        if d >= 0:
-            out[..., :NT - d] = a[..., d:]
-        else:
-            out[..., -d:] = a[..., :NT + d]
-        return out
-
     runmax = torch.full((B, NT), -100.0, dtype=torch.float32, device=dev)
     ptr = [torch.full((B, NT), -1, dtype=torch.int32, device=dev)
            for _ in range(3)]
@@ -177,10 +229,10 @@ def star_tables_plain(ndx, stop_val, kind4, edge, cs, rsc, usc, st_wt,
         k = t if is_f else t - relk
         d = (3 - k) if is_f else (k - 3)
         j = iidx + d
-        ndx_j = shifted(ndx, d)
-        kind_j = shifted(kind, d)
-        sv_j = shifted(sv, d)
-        sc_j, rsc_j, usc_j = (shifted(a, d) for a in (cs, rsc, usc))
+        ndx_j = _shifted(ndx, d)
+        kind_j = _shifted(kind, d)
+        sv_j = _shifted(sv, d)
+        sc_j, rsc_j, usc_j = (_shifted(a, d) for a in (cs, rsc, usc))
         strj = torch.where(kind_j < 2, 1, -1)
         if is_f:
             okd = (fstop & (strj == 1) & (ndx_j <= ndx + 2)
@@ -230,7 +282,9 @@ def star_tables(ndx, stop_val, kind4, edge, cs, rsc, usc, st_wt, relk,
     bin row (mega route) or (B, NT), one per row (std route); cs (= cscore
     + sscore), rsc, usc: (B, NT) f32; st_wt: (B,) f32.  Returns star_ptr,
     opv1, val3, t_sv, t_ndx, each stacked over the three frames as
-    (3, B, NT) -- the JAX wrapper's lists, stacked."""
+    (3, B, NT) -- the JAX wrapper's lists, stacked.  A block of the kernel
+    takes a tile of STAR_TILE nodes and `_star_rows` bin rows; relk is at
+    most STAR_MAX_RELK."""
     if not cs.is_cuda:
         return star_tables_plain(ndx, stop_val, kind4, edge, cs, rsc, usc,
                                  st_wt, relk, max_overlap)
@@ -238,6 +292,9 @@ def star_tables(ndx, stop_val, kind4, edge, cs, rsc, usc, st_wt, relk,
     R = ndx.shape[0]
     if R not in (1, B):
         raise ValueError(f"star_tables: {R} geometry rows for {B} rows")
+    if not 1 <= relk <= STAR_MAX_RELK:
+        raise ValueError(f"star_tables: relk {relk} outside "
+                         f"[1, {STAR_MAX_RELK}]")
     for t, name in ((ndx, "ndx"), (stop_val, "stop_val"), (kind4, "kind4"),
                     (edge, "edge")):
         _check(t, torch.int32, (R, NT), name)
@@ -259,6 +316,7 @@ def star_tables(ndx, stop_val, kind4, edge, cs, rsc, usc, st_wt, relk,
         edge.data_ptr(), cs.data_ptr(), rsc.data_ptr(), usc.data_ptr(),
         st_wt.data_ptr(), sp.data_ptr(), opv1.data_ptr(), val3.data_ptr(),
         t_sv.data_ptr(), t_ndx.data_ptr(), B, NT, relk, max_overlap,
-        0 if R == 1 else NT, _stream(dev)), "star")
+        0 if R == 1 else NT, STAR_TILE, _star_rows(B, R), _stream(dev)),
+        "star")
     LAUNCHES["star"] += 1
     return sp, opv1, val3, t_sv, t_ndx

@@ -403,3 +403,201 @@ def test_star_kernel_matches_plain(inputs, per_row_inputs, layout,
             assert torch.equal(a, b)
         else:
             assert torch.allclose(a, b, rtol=1e-6, atol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# the star kernel's candidate masks, and its tile edges on the card
+# --------------------------------------------------------------------------
+
+RELK, MAX_OVERLAP = 32, 60
+
+
+def _tie_star(B=2):
+    """A crafted shared geometry (64 nodes, ndx = 100 + 5 i) with one
+    forward stop (node 20, ndx 200) and one reverse stop (node 40, ndx 300),
+    each with two candidates of equal score in different frames: forward
+    starts at nodes 14 and 12 (ndx 170 and 160), reverse starts at nodes
+    45 and 47 (ndx 325 and 335); all at 15-60 bp, so no operon bonus and
+    no adjacency, and the same cs.  The first candidate in walk order
+    (node 14, node 45) must win."""
+    NT = 64
+    ndx = 100 + 5 * np.arange(NT, dtype=np.int32)
+    kind4 = np.full(NT, 4, np.int32)
+    sv = np.zeros(NT, np.int32)
+    kind4[20], kind4[40] = 1, 3
+    kind4[[12, 14]] = 0
+    sv[[12, 14]] = 400
+    kind4[[45, 47]] = 2
+    sv[[45, 47]] = 150
+    rng = np.random.default_rng(5)
+    cs = rng.normal(0.0, 1.0, (B, NT)).astype(np.float32)
+    cs[:, [12, 14, 45, 47]] = 1.5
+    rsc = rng.normal(0.0, 1.0, (B, NT)).astype(np.float32)
+    usc = rng.normal(0.0, 1.0, (B, NT)).astype(np.float32)
+    stw = rng.uniform(0.5, 2.0, B).astype(np.float32)
+    return (ndx[None], sv[None], kind4[None], np.zeros((1, NT), np.int32),
+            cs, rsc, usc, stw)
+
+
+def _walk_candidates(masks, ndx, stop_val, kind4, edge, cs, rsc, usc, st_wt,
+                     relk):
+    """The sweep as the star kernel runs it: each stop walks the set bits
+    of its candidate mask in ascending order, a strict `>` running max of
+    cs[j] + igm from -100, one pointer per frame of ndx[j]; (3, B, NT)."""
+    B, NT = cs.shape
+    fstop = ((kind4 & 7) == 1) & (edge == 0)
+    ndx, masks, fstop = (a.expand(B, NT) for a in (ndx, masks, fstop))
+    stw = st_wt[:, None]
+    iidx = torch.arange(NT)
+    runmax = torch.full((B, NT), -100.0)
+    ptr = torch.full((3, B, NT), -1, dtype=torch.int32)
+    for k in range(relk):
+        bit = ((masks >> k) & 1) != 0
+        j = iidx + torch.where(fstop, 3 - k, k - 3)
+        jc = j.clamp(0, NT - 1)
+        ndx_j, cs_j, rsc_j, usc_j = (a.gather(1, jc)
+                                     for a in (ndx, cs, rsc, usc))
+        igm = torch.where(
+            fstop,
+            dp_cuda._igm_same(ndx, 1, rsc, usc, ndx_j, rsc_j, usc_j, stw),
+            dp_cuda._igm_same(ndx_j, -1, rsc_j, usc_j, ndx, rsc, usc, stw))
+        sc = cs_j + igm
+        upd = bit & (sc > runmax)
+        for f in range(3):
+            ptr[f] = torch.where(upd & (ndx_j % 3 == f), j.to(torch.int32),
+                                 ptr[f])
+        runmax = torch.where(upd, sc, runmax)
+    return ptr
+
+
+@needs_bins
+@pytest.mark.parametrize("case", ["shared", "per_row", "tie"])
+def test_star_candidate_masks_walk_to_plain_pointers(case, inputs,
+                                                     per_row_inputs):
+    """`star_candidates_plain`'s masks, walked bit by bit as the kernel
+    walks them, give `star_tables_plain`'s pointers exactly, on the 30 kb
+    shared geometry, on per-row geometries and on the tie input; masks
+    are 0 off the non-edge stops."""
+    star = {"shared": lambda: inputs["star"],
+            "per_row": lambda: per_row_inputs["star"],
+            "tie": _tie_star}[case]()
+    ndx, sv, kind4, edge, cs, rsc, usc, stw = (_t(a) for a in star)
+    masks = star_cuda.star_candidates_plain(ndx, sv, kind4, edge, RELK,
+                                            MAX_OVERLAP)
+    assert masks.shape == ndx.shape and masks.dtype == torch.int64
+    stops = (((kind4 & 7) == 1) | ((kind4 & 7) == 3)) & (edge == 0)
+    assert not (masks[~stops] != 0).any()
+    assert (masks >> RELK == 0).all()
+    sp = star_cuda.star_tables_plain(ndx, sv, kind4, edge, cs, rsc, usc, stw,
+                                     RELK, MAX_OVERLAP)[0]
+    walked = _walk_candidates(masks, ndx, sv, kind4, edge, cs, rsc, usc, stw,
+                              RELK)
+    assert torch.equal(walked, sp)
+    assert (sp != -1).sum() > 0
+    if case == "tie":
+        # two candidates each: j = i + 3 - k (fwd), j = i - 3 + k (rev)
+        assert masks[0, 20] == (1 << 9) | (1 << 11)
+        assert masks[0, 40] == (1 << 8) | (1 << 10)
+        # ndx 170 % 3 = 2 wins over 160 % 3 = 1; 325 % 3 = 1 over 335 % 3 = 2
+        assert sp[:, :, 20].T.tolist() == [[-1, -1, 14]] * 2
+        assert sp[:, :, 40].T.tolist() == [[-1, 45, -1]] * 2
+
+
+def test_star_candidates_plain_rejects_long_walks():
+    """The masks hold 32 steps: relk past that, or below 1, is refused."""
+    z = torch.zeros((1, 8), dtype=torch.int32)
+    for relk in (0, 33):
+        with pytest.raises(ValueError):
+            star_cuda.star_candidates_plain(z, z, z, z, relk, MAX_OVERLAP)
+
+
+@pytest.mark.parametrize("B,R", [(16, 1), (3, 1), (128, 128), (1, 1)])
+def test_star_rows_a_block(B, R):
+    """A block sweeps up to STAR_ROWS bin rows over one shared geometry row,
+    and one row where each row has its own geometry."""
+    G = star_cuda._star_rows(B, R)
+    assert 1 <= G <= star_cuda.STAR_ROWS and G <= B
+    assert G == (1 if R > 1 else min(B, star_cuda.STAR_ROWS))
+
+
+def _synthetic_star(B, NT, per_row, seed, tile):
+    """Star inputs from a seed, dense in candidates: ndx rising by 1-6 bp a
+    node, kinds 0-3 at random with 5% padding, 5% edge nodes, a start's
+    stop 0-400 bp downstream of it; at every tile edge e, a forward stop
+    at node e whose best candidate is node e - 2, across the edge; one
+    shared geometry row, or one per bin row with every fourth row all
+    padding.  Numpy."""
+    rng = np.random.default_rng(seed)
+    R = B if per_row else 1
+    ndx = np.cumsum(rng.integers(1, 7, (R, NT)), 1).astype(np.int32)
+    kind4 = rng.choice(4, (R, NT), p=[0.35, 0.15, 0.35, 0.15]) \
+        .astype(np.int32)
+    kind4[rng.random((R, NT)) < 0.05] = 4
+    reach = rng.integers(0, 400, (R, NT))
+    sv = np.where(kind4 == 2, ndx - reach, ndx + reach).astype(np.int32)
+    edge = (rng.random((R, NT)) < 0.05).astype(np.int32)
+    cs = rng.normal(0.0, 3.0, (B, NT)).astype(np.float32)
+    for e in range(tile, NT, tile):
+        kind4[:, e], edge[:, e] = 1, 0
+        kind4[:, e - 2], sv[:, e - 2] = 0, ndx[:, e] + 100
+        cs[:, e - 2] = 50.0
+    if per_row:
+        kind4[3::4] = 4
+    rsc = rng.normal(0.0, 1.0, (B, NT)).astype(np.float32)
+    usc = rng.normal(0.0, 1.0, (B, NT)).astype(np.float32)
+    stw = rng.uniform(0.5, 2.0, B).astype(np.float32)
+    return ndx, sv, kind4, edge, cs, rsc, usc, stw
+
+
+def _star_kernel_against_plain(star, device, record_property):
+    """The kernel against its plain twin on the card: integers exactly
+    equal, floats within rtol 1e-6 (whether they are bit-equal is
+    recorded); returns the plain pointers."""
+    args = [_t(np.ascontiguousarray(a), device) for a in star]
+    before = star_cuda.LAUNCHES["star"]
+    got = star_cuda.star_tables(*args, RELK, MAX_OVERLAP)
+    ref = star_cuda.star_tables_plain(*args, RELK, MAX_OVERLAP)
+    torch.cuda.synchronize()
+    assert star_cuda.LAUNCHES["star"] == before + 1
+    bit_equal = True
+    for name, a, b in zip(("star_ptr", "opv1", "val3", "t_sv", "t_ndx"),
+                          got, ref):
+        if a.dtype == torch.int32:
+            assert torch.equal(a, b), name
+        else:
+            assert torch.allclose(a, b, rtol=1e-6, atol=1e-5), name
+            bit_equal &= torch.equal(a, b)
+    record_property("float_tables_bit_equal", bit_equal)
+    return ref[0].cpu()
+
+
+STAR_T = star_cuda.STAR_TILE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["shared", "per_row"])
+@pytest.mark.parametrize("B", [1, 16, 24])
+@pytest.mark.parametrize("NT", [STAR_T - 1, STAR_T, STAR_T + 1,
+                                3 * STAR_T + 5])
+def test_star_kernel_tile_edges(NT, B, layout, cuda_device, record_property):
+    """Synthetic geometries at NT = T - 1, T, T + 1 and 3T + 5 (T the
+    kernel's tile) and B = 1, 16, 24 (a partial row group): stops within
+    28 nodes of a tile edge point across it, and per-row geometries
+    include all-padding rows."""
+    star = _synthetic_star(B, NT, layout == "per_row", NT * 100 + B, STAR_T)
+    sp = _star_kernel_against_plain(star, cuda_device, record_property)
+    i = torch.arange(NT)
+    across = (sp != -1) & (sp // STAR_T != i // STAR_T)
+    assert (sp != -1).sum() > B * NT // 20
+    if NT > STAR_T:
+        assert across.sum() > 0
+
+
+@pytest.mark.cuda
+def test_star_kernel_tie(cuda_device, record_property):
+    """Two candidates of equal score: the first in walk order wins on the
+    card as in the plain twin."""
+    sp = _star_kernel_against_plain(_tie_star(), cuda_device,
+                                    record_property)
+    assert sp[:, :, 20].T.tolist() == [[-1, -1, 14]] * 2
+    assert sp[:, :, 40].T.tolist() == [[-1, 45, -1]] * 2
