@@ -40,7 +40,28 @@ Phases, each printing one line:
       whole, in one call: bytes against the exact C engine for every
       contig, route counts (no "c"), launch counters, Mbp/s and contigs/s
       of a first and a warm call, and the drift of a std launch's best
-      scores on 20 contigs.
+      scores on 20 contigs;
+   c. single mode, `pyrodigal_tpu_torch.GeneFinder(backend="cuda")`:
+      trained on the genome (timed; the exact C engine, as in the
+      reference), then `find_genes` on the genome (the mega route) and
+      `find_genes_batch` on the short-contig set (the std route), each
+      with the launch counters set to 0 just before it and read just
+      after: GFF, nucleotide and protein FASTA and start-score bytes
+      against the exact C engine's single mode for every contig, Mbp/s
+      of a first and a warm call beside refcore's single-mode wall time
+      on the same input (one thread and eight), each stage alone (host
+      prep, the launches, exact finishing), and the device's one-row
+      best scores of the first call against the exact engine's, failing
+      beyond a tenth of the winner margin (`CudaMetaRunner._margin`);
+      then every kernel of the genome's (8, 163,840) mega launch and of
+      the short set's first std launch (16 rows) against its plain twin
+      on the same inputs, within the phase 2 tolerances (the mega DP's
+      twin on a CPU copy);
+4. the CLI on the card: `python -m pyrodigal_tpu_torch -i <genome> -o
+   -a -d -s` with the default backend against `--backend refcore`, the
+   same on the short-contig set (one launch a contig), and with `-p
+   meta` on MIIJ01000039: every output's bytes equal, both exit codes
+   0.
 
 Then one JSON line of kernel records, the card's name and power limit,
 and, last, the result line.  Exits non-zero, with no result line, when
@@ -800,20 +821,20 @@ def phase_kernels_std(runner, contigs):
         raise AssertionError("per-row star: no pointer set")
     timed = _star_timed(sargs)
     star_plain_ms = _time_ms(lambda: star_cuda.star_tables_plain(*sargs), 3)
-    work = _star_work(sargs, got)
+    swork = _star_work(sargs, got)
     kind4 = dargs[2]
     star = {"max_abs_err_per_row": star_err, "ms_per_row": timed["ms"],
             "ms_launch_per_row": timed["ms_launch"],
             "ms_stream_per_row": timed["ms_stream"],
             "plain_ms_per_row": star_plain_ms, "shape_per_row": [BT, n],
-            "bound_ms_per_row": work["bound"][0],
-            "bound_by_per_row": work["bound"][1],
+            "bound_ms_per_row": swork["bound"][0],
+            "bound_by_per_row": swork["bound"][1],
             "float_bit_equal_per_row": star_bits,
-            "stops_per_row": work["stops"],
+            "stops_per_row": swork["stops"],
             "candidates_per_stop_mean_per_row":
-                work["candidates_per_stop_mean"],
+                swork["candidates_per_stop_mean"],
             "candidates_per_stop_max_per_row":
-                work["candidates_per_stop_max"]}
+                swork["candidates_per_stop_max"]}
 
     # -- the std DP: all four outputs exactly equal -----------------------
     got = dp_cuda.std_dp(*dargs)
@@ -872,20 +893,22 @@ def phase_kernels_std(runner, contigs):
           f"; per-row star {star['shape_per_row']}: graph "
           f"{timed['ms']:.4f} ms, bare launch {timed['ms_launch']:.4f} ms, "
           f"wrapper on the stream {timed['ms_stream']:.4f} ms, plain "
-          f"{star_plain_ms:.3f} ms, bound {work['bound'][0]:.4f} ms, max abs "
+          f"{star_plain_ms:.3f} ms, bound {swork['bound'][0]:.4f} ms, max abs "
           f"err {star_err:.3g}, float tables bit-equal to plain: "
-          f"{star_bits}, {work['stops']} stops, candidates per stop mean "
-          f"{work['candidates_per_stop_mean']:.3f} max "
-          f"{work['candidates_per_stop_max']}; kernels the mean of 10 calls, plain "
+          f"{star_bits}, {swork['stops']} stops, candidates per stop mean "
+          f"{swork['candidates_per_stop_mean']:.3f} max "
+          f"{swork['candidates_per_stop_max']}; kernels the mean of 10 calls, plain "
           f"phase-cumsum, star and torch.cumsum of 3, the plain DPs one "
           f"host-timed call", flush=True)
     return out, star
 
 
-def _outputs(genes, name):
+def _outputs(genes, name, scores=False):
+    """GFF, nucleotide and protein FASTA bytes, and with `scores` the
+    start-score table's."""
     streams = []
-    for write in (genes.write_gff, genes.write_genes,
-                  genes.write_translations):
+    writers = [genes.write_gff, genes.write_genes, genes.write_translations]
+    for write in writers + [genes.write_scores] * scores:
         f = io.StringIO()
         write(f, name)
         streams.append(f.getvalue().encode())
@@ -908,6 +931,41 @@ def _refcore(seqs):
         return list(ex.map(one, range(len(seqs))))
 
 
+def _zero_counts():
+    from pyrodigal_tpu_torch.ops import dp_cuda, star_cuda
+
+    for counts in (star_cuda.LAUNCHES, dp_cuda.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _counts():
+    from pyrodigal_tpu_torch.ops import dp_cuda, star_cuda
+
+    return {**star_cuda.LAUNCHES, **dp_cuda.LAUNCHES}
+
+
+def _timed_call(fn, *args):
+    """(result, host seconds) of one call, synchronised on both ends."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _bytes_equal(named, got, ref, scores):
+    for (name, _s), a, b in zip(named, got, ref):
+        kinds = ("GFF", "FNA", "FAA", "scores")
+        for kind, x, y in zip(kinds, _outputs(a, name, scores),
+                              _outputs(b, name, scores)):
+            if x != y:
+                raise AssertionError(f"{name}: {kind} bytes differ from "
+                                     f"refcore")
+
+
 def _drive(named, kernels):
     """One path end to end: a fresh GeneFinder(meta=True, backend="cuda")
     on [(name, sequence)], the launch counters set to 0 just before its
@@ -918,20 +976,13 @@ def _drive(named, kernels):
 
     import pyrodigal_tpu_torch
     from pyrodigal_tpu_torch.sequence import Sequence
-    from pyrodigal_tpu_torch.ops import dp_cuda, star_cuda
 
     seqs = [s for _n, s in named]
     finder = pyrodigal_tpu_torch.GeneFinder(meta=True, backend="cuda")
     runner = finder._get_meta_runner()
-    for counts in (star_cuda.LAUNCHES, dp_cuda.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    got = finder.find_genes_batch(seqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {**star_cuda.LAUNCHES, **dp_cuda.LAUNCHES}
+    _zero_counts()
+    got, wall = _timed_call(finder.find_genes_batch, seqs)
+    launches = _counts()
     routes = dict(runner.route_counts)
 
     t0 = time.perf_counter()
@@ -945,12 +996,7 @@ def _drive(named, kernels):
     t0 = time.perf_counter()
     ref = _refcore(seqs)
     ref_s = time.perf_counter() - t0
-    for (name, _s), a, b in zip(named, got, ref):
-        for kind, x, y in zip(("GFF", "FNA", "FAA"), _outputs(a, name),
-                              _outputs(b, name)):
-            if x != y:
-                raise AssertionError(f"{name}: {kind} bytes differ from "
-                                     f"refcore")
+    _bytes_equal(named, got, ref, scores=False)
     if min(launches[k] for k in kernels) <= 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
     if routes["c"]:
@@ -1053,6 +1099,285 @@ def phase_end_to_end_std(contigs):
     return r["launches"]
 
 
+def _refcore_single(tinf, seqs, num_seq, threads):
+    """The exact C engine's single mode on `seqs`, numbered from
+    `num_seq` as one finder's calls number them, on `threads` threads;
+    returns (genes, wall seconds)."""
+    import pyrodigal_tpu_torch
+
+    def one(i):
+        finder = pyrodigal_tpu_torch.GeneFinder(training_info=tinf,
+                                                backend="refcore")
+        finder._num_seq = num_seq + i
+        return finder.find_genes(seqs[i])
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(threads) as ex:
+        out = list(ex.map(one, range(len(seqs))))
+    return out, time.perf_counter() - t0
+
+
+def _single_stages(runner, seqs, route):
+    """Each stage of a single-mode call alone, on the runner's pools: the
+    host prep of every contig, the device launches one after another (the
+    genome's mega launch, or the std launches of the std-route contigs),
+    and the exact engine's finishing of every contig.  Returns (prep s,
+    launches s, launches, finishing s, the launches' work: [(sweep,
+    args)])."""
+    import torch
+
+    from pyrodigal_tpu_torch.sequence import Sequence
+
+    contigs = [Sequence(s) for s in seqs]
+    preps, prep_s = _timed_call(
+        lambda: list(runner.pool.map(runner._prepare_contig, contigs)))
+    if route == "mega":
+        _c, geoms, _nbt, _r = preps[0]
+        work = [(runner._sweep_mega_multi,
+                 ([{"ci": 0, "g": next(iter(geoms.values())),
+                    "rows": [0]}],))]
+    else:
+        work = [(runner._sweep_std, (L["work"], L["geoms"]))
+                for L in runner._pack_std(
+                    [(ci, p[0], p[1]) for ci, p in enumerate(preps)
+                     if p[3] == "std"])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for sweep, args in work:
+        sweep(*args)
+    torch.cuda.synchronize()
+    launch_s = time.perf_counter() - t0
+
+    def finish(ci):
+        return runner._produce_single(contigs[ci], 1, preps[ci][2])
+
+    _f, finish_s = _timed_call(
+        lambda: list(runner.pool.map(finish, range(len(contigs)))))
+    return prep_s, launch_s, len(work), finish_s, work
+
+
+# kernel -> (module, wrapper, plain twin)
+WRAPPERS = {
+    "dc_chain": ("star_cuda", "dc_phase_cumsum", "dc_phase_cumsum_plain"),
+    "phase_cumsum": ("star_cuda", "phase_cumsum", "phase_cumsum_plain"),
+    "star": ("star_cuda", "star_tables", "star_tables_plain"),
+    "dp_mega": ("dp_cuda", "mega_dp", "mega_dp_plain"),
+    "dp_std": ("dp_cuda", "std_dp", "std_dp_plain"),
+}
+
+
+def _captured(fn, *args):
+    """fn(*args) with every kernel wrapper recording its calls; returns
+    [(kernel, arguments, output)] in call order."""
+    from pyrodigal_tpu_torch.ops import dp_cuda, star_cuda
+
+    mods = {"star_cuda": star_cuda, "dp_cuda": dp_cuda}
+    calls, saved = [], []
+    for name, (mod, wrapper, _plain) in WRAPPERS.items():
+        orig = getattr(mods[mod], wrapper)
+        saved.append((mods[mod], wrapper, orig))
+
+        def record(*a, _orig=orig, _name=name):
+            out = _orig(*a)
+            calls.append((_name, a, out))
+            return out
+
+        setattr(mods[mod], wrapper, record)
+    try:
+        fn(*args)
+    finally:
+        for mod, wrapper, orig in saved:
+            setattr(mod, wrapper, orig)
+    return calls
+
+
+def _single_kernel_checks(label, sweep, args):
+    """Every kernel call of one single-mode launch against its plain twin
+    on the same inputs: the prefix sums within their sum-order bound,
+    star's pointers and integer tables exact and its floats within rtol
+    1e-6, the DPs' four outputs exactly equal.  The mega DP's twin runs on
+    a CPU copy of the inputs, as the CPU tests run it (on the card it
+    would take minutes at the genome's 153 k node steps).  Returns
+    {kernel: (max abs err, shape)}."""
+    import torch
+
+    from pyrodigal_tpu_torch.ops import dp_cuda, star_cuda
+
+    mods = {"star_cuda": star_cuda, "dp_cuda": dp_cuda}
+    out = {}
+    for name, a, got in _captured(sweep, *args):
+        plain = getattr(mods[WRAPPERS[name][0]], WRAPPERS[name][2])
+        tag = f"single mode, {label}: {name}"
+        if name == "dc_chain":
+            err, _r = _bound_check(tag, got, plain(*a),
+                                   a[0][:, a[1].long()].abs())
+            shape = [a[0].shape[0], a[1].shape[0]]
+        elif name == "phase_cumsum":
+            err, _r = _bound_check(tag, got, plain(*a), a[0].abs())
+            shape = list(a[0].shape)
+        elif name == "star":
+            err, _bits = _star_check(tag, got, plain(*a))
+            shape = list(a[4].shape)
+        else:
+            if name == "dp_mega":
+                ref = plain(*(x.cpu() if torch.is_tensor(x) else x
+                              for x in a))
+                got = tuple(x.cpu() for x in got)
+            else:
+                ref = plain(*a)
+            err = float(_dp_equal(tag, got, ref))
+            shape = list(a[7].shape if name == "dp_mega" else a[4].shape)
+        e0, shapes = out.get(name, (0.0, []))
+        out[name] = (max(e0, err), shapes + [shape])
+    return out
+
+
+def phase_single(contigs):
+    """Phase 3c: single mode on the card, trained on the genome; the
+    genome alone (mega route), then the short-contig set in one call
+    (std route).  Each call's launches record their one-row best scores
+    against the exact engine's (`CudaMetaRunner.single_drift`); the run
+    fails beyond a tenth of the winner margin.  Then every kernel of the
+    genome's (8, 163,840) mega launch and of the short set's first std
+    launch (16 rows, one contig each) against its plain twin."""
+    import pyrodigal_tpu_torch
+
+    rec = _records(GENOME)[0]
+    finder = pyrodigal_tpu_torch.GeneFinder(backend="cuda")
+    tinf, train_s = _timed_call(finder.train, rec.seq)
+    out = {}
+    paths = (("genome", [(rec.id, rec.seq)], MEGA_KERNELS, "mega"),
+             ("short set", contigs, STD_KERNELS, "std"))
+    num_seq = 1
+    for label, named, kernels, route in paths:
+        seqs = [s for _n, s in named]
+
+        def call():
+            if len(seqs) == 1:
+                return [finder.find_genes(seqs[0])]
+            return finder.find_genes_batch(seqs)
+
+        if finder._single_runner is not None:
+            finder._single_runner.single_drift.update(
+                pairs=0, margin_ratio=0.0, relative=0.0)
+        _zero_counts()
+        got, wall = _timed_call(call)
+        launches = _counts()
+        runner = finder._single_runner
+        routes = dict(runner.route_counts)
+        drift = dict(runner.single_drift)
+        if min(launches[k] for k in kernels) <= 0:
+            raise AssertionError(f"single mode, {label}: a kernel was not "
+                                 f"launched: {launches}")
+        if routes["c"] or routes[route] <= 0:
+            raise AssertionError(f"single mode, {label}: routes {routes}")
+        if [g._num_seq for g in got] != list(range(num_seq,
+                                                   num_seq + len(seqs))):
+            raise AssertionError(f"single mode, {label}: numbering")
+        if drift["pairs"] <= 0 or drift["margin_ratio"] > 1.0:
+            raise AssertionError(f"single mode, {label}: device best scores "
+                                 f"beyond a tenth of the winner margin: "
+                                 f"{drift}")
+        _warm, warm = _timed_call(call)
+        ref, ref_1 = _refcore_single(tinf, seqs, num_seq, 1)
+        _ref, ref_8 = _refcore_single(tinf, seqs, num_seq, 8)
+        _bytes_equal(named, got, ref, scores=True)
+        num_seq += 2 * len(seqs)
+        for k in routes:
+            runner.route_counts[k] = 0
+        prep_s, launch_s, n_launch, finish_s, work = \
+            _single_stages(runner, seqs, route)
+        checks = _single_kernel_checks(label, *work[0])
+        if set(checks) != set(kernels):
+            raise AssertionError(f"single mode, {label}: kernels checked "
+                                 f"{sorted(checks)}")
+        out[label] = {"launches": launches, "routes": routes,
+                      "bp": sum(len(s) for s in seqs),
+                      "genes": sum(len(g) for g in got), "wall": wall,
+                      "warm": warm, "refcore_1": ref_1, "refcore_8": ref_8,
+                      "prep": prep_s, "launch": launch_s,
+                      "n_launch": n_launch, "finish": finish_s,
+                      "drift": drift, "checks": checks}
+    print(f"phase 3c single mode: trained on the genome in {train_s:.3f} s "
+          f"(uses_sd {bool(tinf.uses_sd)}); " + "; ".join(
+              f"{label}: {r['bp']} bp, {r['genes']} genes, first call "
+              f"{r['wall']:.3f} s = {r['bp'] / r['wall'] / 1e6:.4f} Mbp/s, "
+              f"warm {r['warm']:.3f} s = {r['bp'] / r['warm'] / 1e6:.4f} "
+              f"Mbp/s; refcore single mode {r['refcore_1']:.3f} s on one "
+              f"thread = {r['bp'] / r['refcore_1'] / 1e6:.4f} Mbp/s, "
+              f"{r['refcore_8']:.3f} s on 8; stages alone: host prep "
+              f"{r['prep']:.3f} s on the pool, {r['n_launch']} {route} "
+              f"launch(es) {r['launch']:.3f} s one after another, exact "
+              f"finishing {r['finish']:.3f} s on the pool; routes "
+              f"{r['routes']}; launches {r['launches']}; one-row device "
+              f"best scores vs exact ({r['drift']['pairs']} contigs, first "
+              f"call): worst |diff| / (0.1 x margin) "
+              f"{r['drift']['margin_ratio']:.3g} (limit 1), max relative "
+              f"{r['drift']['relative']:.3g}; kernels against their plain "
+              f"twins on the first launch's inputs: " + ", ".join(
+                  f"{k} {v[1][0]} max abs err {v[0]:.3g}"
+                  for k, v in sorted(r["checks"].items()))
+              for (label, _n, _k, route), r in zip(paths, out.values()))
+          + "; GFF/FNA/FAA and start-score bytes equal to refcore single "
+          "mode for every contig", flush=True)
+    finder._single_runner.close()
+    return out["genome"], out["short set"]
+
+
+def phase_cli(contigs):
+    """Phase 4: the port's CLI on the card, the default backend against
+    `--backend refcore`: single mode on the genome and on the short-contig
+    set (one `find_genes` call, and so one launch, a contig), meta mode on
+    MIIJ01000039; every output file byte-equal."""
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    report = []
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        short = os.path.join(tmp, "short.fna")
+        with open(short, "w") as f:
+            f.writelines(f">{name}\n{seq}\n" for name, seq in contigs)
+        cases = (("single", os.path.join(DATA, GENOME)),
+                 ("single", short),
+                 ("meta", os.path.join(DATA, "MIIJ01000039.fna.gz")))
+        for case, (mode, path) in enumerate(cases):
+            files = {}
+            for backend in ("cuda", "refcore"):
+                d = os.path.join(tmp, f"{case}-{backend}")
+                os.makedirs(d)
+                outs = [os.path.join(d, f) for f in
+                        ("out.gff", "prot.faa", "nuc.fna", "starts.tsv")]
+                argv = [sys.executable, "-m", "pyrodigal_tpu_torch",
+                        "-i", path, "-p", mode,
+                        "-o", outs[0], "-a", outs[1], "-d", outs[2],
+                        "-s", outs[3]]
+                if backend == "refcore":
+                    argv += ["--backend", "refcore"]
+                t0 = time.perf_counter()
+                r = subprocess.run(argv, env=env, cwd=tmp,
+                                   capture_output=True, text=True)
+                wall = time.perf_counter() - t0
+                if r.returncode != 0:
+                    raise AssertionError(
+                        f"CLI {mode} {path} {backend}: exit {r.returncode}: "
+                        f"{r.stderr[-2000:]}")
+                files[backend] = []
+                for out in outs:
+                    with open(out, "rb") as f:
+                        files[backend].append(f.read())
+                report.append(f"{mode} {os.path.basename(path)} {backend} "
+                              f"{wall:.2f} s")
+            if files["cuda"] != files["refcore"]:
+                raise AssertionError(f"CLI {mode} {path}: bytes differ")
+            if not files["cuda"][1]:
+                raise AssertionError(f"CLI {mode} {path}: no protein "
+                                     f"written")
+    print("phase 4 CLI (python -m pyrodigal_tpu_torch -o -a -d -s, "
+          "default backend against --backend refcore): rc 0 and every "
+          "output's bytes equal; wall, process start and kernel load "
+          "included: " + ", ".join(report), flush=True)
+
+
 def main():
     import torch
 
@@ -1075,10 +1400,22 @@ def main():
     torch.cuda.empty_cache()
     mega = phase_end_to_end_mega()
     std = phase_end_to_end_std(contigs)
+    single_genome, single_short = phase_single(contigs)
+    phase_cli(contigs)
     for k in kernels:
-        k["launches"] = mega[k["name"]] + std[k["name"]]
-        k["launches_bench_set"] = mega[k["name"]]
-        k["launches_short_set"] = std[k["name"]]
+        name = k["name"]
+        k["launches"] = (mega[name] + std[name]
+                         + single_genome["launches"][name]
+                         + single_short["launches"][name])
+        k["launches_bench_set"] = mega[name]
+        k["launches_short_set"] = std[name]
+        for label, r in (("genome", single_genome),
+                         ("short_set", single_short)):
+            k[f"launches_single_{label}"] = r["launches"][name]
+            if name in r["checks"]:
+                err, shapes = r["checks"][name]
+                k[f"max_abs_err_single_{label}"] = err
+                k[f"shape_single_{label}"] = shapes[0]
     for mod in ("jax", "pyrodigal_tpu"):
         if mod in sys.modules:
             raise RuntimeError(f"{mod} was imported: the port stands alone")

@@ -1,10 +1,18 @@
 """ctypes bindings to the refcore C engine.
 
 The C engine implements the exact float64 Prodigal v2.6.3 semantics over
-struct-of-arrays numpy buffers.  It is compiled with gcc at first use into
-`build/pyrodigal_tpu_torch/` beside the package (nothing is written next
-to the source), and rebuilt when the source is newer or the host lacks a
-CPU feature the build host had.
+struct-of-arrays numpy buffers.  `_load` takes, in order:
+
+* the object shipped beside this module (a wheel's build of
+  `refcore.c`, with the build host's CPU flags in `librefcore.so.isa`),
+  when this host has every flag it was compiled for;
+* in a source tree, an object gcc builds at first use into
+  `build/pyrodigal_tpu_torch/` at the top of the tree (nothing is
+  written next to the source), rebuilt when the source is newer or the
+  host lacks a CPU feature the build host had;
+
+and raises otherwise.  An installed package never builds, so it needs no
+compiler and writes nothing around itself.
 """
 
 import ctypes
@@ -15,13 +23,22 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "refcore.c")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build",
-                         "pyrodigal_tpu_torch")
+_TOP = os.path.dirname(os.path.dirname(_DIR))
+# the object a wheel ships beside this module
+_SHIPPED = os.path.join(_DIR, "librefcore.so")
+BUILD_DIR = os.path.join(_TOP, "build", "pyrodigal_tpu_torch")
 _LIB = os.path.join(BUILD_DIR, "librefcore.so")
 
 
 CFLAGS = ["-O3", "-march=native", "-ffp-contract=off", "-fPIC"]
 _ISA = _LIB + ".isa"
+
+
+def _source_tree():
+    """True in a checkout of the repository (its build files beside the
+    package), where the C engine may be built; False in an install."""
+    return all(os.path.exists(os.path.join(_TOP, f))
+               for f in ("setup.py", "pyproject.toml"))
 
 
 def _cpu_flags():
@@ -60,16 +77,17 @@ def _build():
     os.replace(tmp, _LIB)
 
 
-def _isa_compatible():
-    """False when the built object came from a host with CPU features this
-    host lacks."""
-    if not os.path.exists(_ISA):
-        return False
+def _isa_compatible(isa, missing_ok=False):
+    """False when the object whose CPU flags `isa` records came from a
+    host with CPU features this host lacks; `missing_ok` when no record
+    is there."""
+    if not os.path.exists(isa):
+        return missing_ok
     host = _cpu_flags()
     if host is None:
         return True
     try:
-        with open(_ISA) as f:
+        with open(isa) as f:
             built = set(f.read().split())
     except OSError:
         return False
@@ -77,12 +95,25 @@ def _isa_compatible():
 
 
 def _load():
+    source_tree = _source_tree()
+    # a shipped object without its flag record is the wheel's own build
+    # (setup.py writes the record when /proc/cpuinfo is readable)
+    if (os.path.exists(_SHIPPED)
+            and _isa_compatible(_SHIPPED + ".isa", missing_ok=True)
+            and not (source_tree and os.path.getmtime(_SHIPPED)
+                     < os.path.getmtime(_SRC))):
+        return ctypes.CDLL(_SHIPPED)
+    if not source_tree:
+        reason = ("was built on a host with CPU features this machine "
+                  "lacks" if os.path.exists(_SHIPPED) else "is missing")
+        raise RuntimeError(
+            f"pyrodigal_tpu_torch: the C engine {_SHIPPED} {reason}; "
+            f"reinstall the package from a wheel built for this machine")
     if (not os.path.exists(_LIB)
             or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)
-            or not _isa_compatible()):
+            or not _isa_compatible(_ISA)):
         _build()
     return ctypes.CDLL(_LIB)
-
 
 _lib = _load()
 

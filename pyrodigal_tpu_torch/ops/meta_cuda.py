@@ -1,4 +1,4 @@
-"""Meta-mode gene calling on the GPU: the std and mega routes.
+"""Gene calling on the GPU, meta and single mode: the std and mega routes.
 
 Port of `pyrodigal_tpu.ops.meta_tpu.TpuMetaRunner`.  Host prep (node
 extraction, geometry) runs on a thread pool and picks each contig's
@@ -19,6 +19,15 @@ Each launch returns one best path score per (contig, bin); the exact C
 engine then re-runs the winning bin(s) of each contig, so the emitted
 genes are the reference's byte for byte (reference: lib.pyx:5317-5396
 for the sequential bin sweep this replaces).
+
+Single mode (`is_meta=False`) runs the same launches with one bin, the
+trained model, and `is_meta=False` scoring, as the JAX package's runner
+does.  There is no bin to choose, so the exact engine re-runs that bin
+for every contig whatever its device score (reference:
+lib.pyx:5281-5315), from the moment the contig's prep is done: the
+launches run beside the finishing, and their one-row best scores only
+feed `single_drift`.  Single mode is not faster on the card than on the
+C engine.
 """
 
 import concurrent.futures
@@ -51,7 +60,9 @@ PREP_THREADS = 8
 
 
 class CudaMetaRunner:
-    """Batched meta-mode gene calling with on-device per-bin scoring."""
+    """Batched gene calling with on-device per-bin scoring: meta mode over
+    `metagenomic_bins`, or single mode (`is_meta=False`) over a one-bin
+    list whose bin carries the trained `training_info`."""
 
     # mega-route buckets (node count, sequence length); FXS = 2048 fixed
     # point up to MEGA_FXS_LIMIT bp, 1024 above (score range 2.1e6)
@@ -72,9 +83,10 @@ class CudaMetaRunner:
 
     def __init__(self, metagenomic_bins, *, device, closed=False,
                  min_gene=90, min_edge_gene=60, max_overlap=60, mask=False,
-                 min_mask=50):
+                 min_mask=50, is_meta=True):
         self.device = torch.device(device)
         self.bins = metagenomic_bins
+        self.is_meta = is_meta
         self.closed = closed
         self.min_gene = min_gene
         self.min_edge_gene = min_edge_gene
@@ -86,6 +98,12 @@ class CudaMetaRunner:
         # device launches run in submission order on one thread
         self.launcher = concurrent.futures.ThreadPoolExecutor(1)
         self.route_counts = {"std": 0, "mega": 0, "c": 0}
+        # single mode: the device's one-row best scores against the exact
+        # engine's, over the runner's calls: contigs compared, the worst
+        # |device - exact| over a tenth of the winner margin (the bound
+        # the tests hold the kernels to), and the worst relative drift
+        self.single_drift = {"pairs": 0, "margin_ratio": 0.0,
+                             "relative": 0.0}
         self._count_lock = threading.Lock()
 
     def close(self):
@@ -95,6 +113,8 @@ class CudaMetaRunner:
     # -- host side -----------------------------------------------------------
 
     def _candidate_bins(self, seq):
+        if not self.is_meta:
+            return [0] if len(self.bins) else []
         low = min(0.65, 0.88495 * seq.gc - 0.0102337)
         high = max(0.35, 0.86596 * seq.gc + 0.1131991)
         return [
@@ -232,7 +252,7 @@ class CudaMetaRunner:
         best = sd.score_dp_launch_mega(
             self.tables.as_tuple(), sd.to_device(packed, self.device),
             torch.from_numpy(bin_idx).to(self.device),
-            is_meta=True, closed=self.closed, has_nonsd=nonsd,
+            is_meta=self.is_meta, closed=self.closed, has_nonsd=nonsd,
             relk=RELK, max_overlap=self.max_overlap, fxs=fxs)
         return best.cpu().numpy(), rows, CP, B
 
@@ -287,9 +307,9 @@ class CudaMetaRunner:
         for work item k."""
         geo, bin_idx, gidx, nonsd = self._std_inputs(work, geoms)
         best = sd.score_dp_launch(
-            self.tables.as_tuple(), geo, bin_idx, gidx, is_meta=True,
-            closed=self.closed, has_nonsd=nonsd, relk=RELK,
-            max_overlap=self.max_overlap)
+            self.tables.as_tuple(), geo, bin_idx, gidx,
+            is_meta=self.is_meta, closed=self.closed, has_nonsd=nonsd,
+            relk=RELK, max_overlap=self.max_overlap)
         return best.cpu().numpy()
 
     # -- finishing (host, exact C on the winning bin) -------------------------
@@ -300,12 +320,13 @@ class CudaMetaRunner:
             nodes.eliminate_bad_genes(ipath, tinf)
         genes._extract(nodes, ipath)
         genes._tweak_final_starts(nodes, tinf, self.max_overlap)
-        # the reference re-extracts and rescores the nodes for the winning
-        # bin after the sweep, so the written per-gene scores are the fresh
-        # model scores without the eliminate/tweak adjustments
-        # (lib.pyx:5380-5394); `out_nodes` is that pre-DP snapshot
-        genes.nodes = out_nodes
-        genes.metagenomic_bin = self.bins[bin_id]
+        # meta: the reference re-extracts and rescores the nodes for the
+        # winning bin after the sweep, so the written per-gene scores are
+        # the fresh model scores without the eliminate/tweak adjustments
+        # (lib.pyx:5380-5394); `out_nodes` is that pre-DP snapshot.
+        # Single mode keeps the adjusted nodes (lib.pyx:5281-5315).
+        genes.nodes = out_nodes if self.is_meta else nodes
+        genes.metagenomic_bin = self.bins[bin_id] if self.is_meta else None
         genes.training_info = tinf
         return genes
 
@@ -313,17 +334,21 @@ class CudaMetaRunner:
         tinf = self.bins[bin_id].training_info
         nodes = nodes_by_tt[tinf.translation_table].copy()
         nodes.reset_scores()
-        nodes.score_nodes(seq, tinf, closed=self.closed, is_meta=True)
+        nodes.score_nodes(seq, tinf, closed=self.closed,
+                          is_meta=self.is_meta)
         nodes.record_overlapping_starts(tinf, 1, self.max_overlap)
         return nodes
 
     def _produce_fallback(self, seq, num_seq):
         """A contig the mega kernel cannot take: the sequential exact-C
-        path."""
+        path, in the runner's mode."""
         from ..gene_finder import GeneFinder
+        if self.is_meta:
+            model = dict(meta=True, metagenomic_bins=self.bins)
+        else:
+            model = dict(training_info=self.bins[0].training_info)
         gf = GeneFinder(
-            meta=True, metagenomic_bins=self.bins,
-            closed=self.closed, mask=self.mask,
+            **model, closed=self.closed, mask=self.mask,
             min_mask=self.min_mask, min_gene=self.min_gene,
             min_edge_gene=self.min_edge_gene,
             max_overlap=self.max_overlap, backend="refcore",
@@ -337,14 +362,41 @@ class CudaMetaRunner:
     def _margin(best):
         return 1.0 + 1e-4 * abs(best)
 
-    def _produce_winner(self, seq, num_seq, cands, nodes_by_tt):
-        """Exact finishing for one contig.  `cands`: [(bin_id,
-        device_score)].  The winning bin, and every bin within the f32
-        drift margin of it, is re-run through the exact f64 C engine, in
-        ascending bin order with the reference's `>` (lib.pyx:5339-5374)."""
+    def _produce_single(self, seq, num_seq, nodes_by_tt):
+        """Single mode's finishing: the exact engine re-runs the one bin
+        and finishes whatever the path (lib.pyx:5281-5315).  Returns
+        (genes, the exact best path score, or None with no path)."""
         genes = Genes()
         genes._num_seq = num_seq
-        genes.meta = True
+        genes.meta = False
+        genes.sequence = seq
+        nodes = self._score_winner(seq, nodes_by_tt, 0)
+        ipath = nodes.dynamic_programming(self.bins[0].training_info,
+                                          final=True)
+        exact = float(nodes.score[ipath]) \
+            if nodes.length > 0 and ipath >= 0 else None
+        return self._finish(genes, seq, 0, nodes, ipath, None), exact
+
+    def _record_drift(self, device, exact):
+        if exact is None:
+            return
+        diff = abs(device - exact)
+        with self._count_lock:
+            d = self.single_drift
+            d["pairs"] += 1
+            d["margin_ratio"] = max(d["margin_ratio"],
+                                    diff / (0.1 * self._margin(exact)))
+            d["relative"] = max(d["relative"], diff / max(abs(exact), 1.0))
+
+    def _produce_winner(self, seq, num_seq, cands, nodes_by_tt):
+        """Exact finishing for one contig in meta mode.  `cands`:
+        [(bin_id, device_score)].  The winning bin, and every bin within
+        the f32 drift margin of it, is re-run through the exact f64 C
+        engine, in ascending bin order with the reference's `>`
+        (lib.pyx:5339-5374)."""
+        genes = Genes()
+        genes._num_seq = num_seq
+        genes.meta = self.is_meta
         genes.sequence = seq
         best_dev = max(s for _b, s in cands)
         close = sorted(b for b, s in cands
@@ -367,7 +419,7 @@ class CudaMetaRunner:
     def _produce_empty(self, seq, num_seq):
         genes = Genes()
         genes._num_seq = num_seq
-        genes.meta = True
+        genes.meta = self.is_meta
         genes.sequence = seq
         genes.nodes = Nodes()
         genes.metagenomic_bin = None
@@ -402,14 +454,20 @@ class CudaMetaRunner:
             if route == "c":
                 futures[ci] = self.pool.submit(
                     self._produce_fallback, contigs[ci], num_seq_start + ci)
-            elif not cand:
+                continue
+            if not cand:
                 futures[ci] = self.pool.submit(
                     self._produce_empty, contigs[ci], num_seq_start + ci)
-            elif route == "std":
-                nodes_maps[ci] = nodes_by_tt
+                continue
+            if not self.is_meta:
+                # single mode finishes now; the launch runs beside it
+                futures[ci] = self.pool.submit(
+                    self._produce_single, contigs[ci], num_seq_start + ci,
+                    nodes_by_tt)
+            nodes_maps[ci] = nodes_by_tt
+            if route == "std":
                 std_items.append((ci, cand, geoms))
             else:
-                nodes_maps[ci] = nodes_by_tt
                 by_tt = {}
                 for b in cand:
                     tt = self.bins[b].training_info.translation_table
@@ -428,8 +486,13 @@ class CudaMetaRunner:
             L["fut"] = self.launcher.submit(self._sweep_std, L["work"],
                                             L["geoms"])
 
+        device_best = {}
+
         def submit(ci, cands):
-            if max(s for _b, s in cands) <= -100.0:
+            if not self.is_meta:
+                device_best[ci] = cands[0][1]
+            # meta mode: no bin found a path (lib.pyx:5361)
+            elif max(s for _b, s in cands) <= -100.0:
                 futures[ci] = self.pool.submit(
                     self._produce_empty, contigs[ci], num_seq_start + ci)
             else:
@@ -437,9 +500,9 @@ class CudaMetaRunner:
                     self._produce_winner, contigs[ci], num_seq_start + ci,
                     cands, nodes_maps[ci])
 
-        # pull launches in dispatch order, mega first; each contig goes to
-        # the exact-C winner finishing when its last item arrives, while
-        # the device runs later launches
+        # pull launches in dispatch order, mega first; in meta mode each
+        # contig goes to the exact-C winner finishing when its last item
+        # arrives, while the device runs later launches
         cands_by_ci = {}
         for gr in groups:
             bests, rows, _CP, _B = gr["fut"].result()
@@ -457,4 +520,8 @@ class CudaMetaRunner:
                 cands_by_ci.setdefault(ci, []).append((b, float(bests[k])))
             for ci in dict.fromkeys(ci for ci, _b, _key in L["work"]):
                 submit(ci, cands_by_ci.pop(ci))
-        return [futures[ci].result() for ci in range(len(contigs))]
+        out = [futures[ci].result() for ci in range(len(contigs))]
+        for ci, dev in device_best.items():
+            out[ci], exact = out[ci]
+            self._record_drift(dev, exact)
+        return out

@@ -44,19 +44,23 @@ class BuildRefcore(build_ext):
                 f.write(" ".join(flags))
 
 
+# -march=native: the wheel is built for (and on) the deploy host; the
+# ctypes loaders check the `.isa` record beside each object, so a shipped
+# object only needs to match the build machine.  -ffp-contract=off keeps
+# the float64 engine bit-identical across instruction sets (no FMA
+# contraction).  One engine for each package: the PyTorch port carries
+# its own copy of refcore.c.
+REFCORE_FLAGS = ["-O3", "-march=native", "-ffp-contract=off"]
+
 setup(
     ext_modules=[
         Extension(
-            "pyrodigal_tpu._native.librefcore",
-            sources=["pyrodigal_tpu/_native/refcore.c"],
-            # -march=native: the wheel is built for (and on) the deploy
-            # host; the ctypes loader rebuilds from source when a compiler
-            # is available, so the shipped object only needs to match the
-            # build machine.  -ffp-contract=off keeps the float64 engine
-            # bit-identical across instruction sets (no FMA contraction).
-            extra_compile_args=["-O3", "-march=native", "-ffp-contract=off"],
+            f"{pkg}._native.librefcore",
+            sources=[f"{pkg}/_native/refcore.c"],
+            extra_compile_args=REFCORE_FLAGS,
             libraries=["m"],
         )
+        for pkg in ("pyrodigal_tpu", "pyrodigal_tpu_torch")
     ],
     cmdclass={"build_ext": BuildRefcore},
 )

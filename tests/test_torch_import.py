@@ -77,21 +77,19 @@ def test_import_and_mega_launch_with_jax_blocked():
 
 
 def test_backend_resolution():
-    """"cuda" is the default and needs a card; single mode needs
-    "refcore"; "refcore" is the only way to the CPU; the JAX package's
-    "detect" and "jax" tokens are gone."""
+    """"cuda" is the default in both modes and needs a card; "refcore" is
+    the only way to the CPU; the JAX package's "detect" and "jax" tokens
+    are gone."""
     from pyrodigal_tpu_torch import GeneFinder
 
-    if torch.cuda.is_available():
-        assert GeneFinder(meta=True).backend == "cuda"
-    else:
-        with pytest.raises(RuntimeError, match="CUDA"):
-            GeneFinder(meta=True)
-        with pytest.raises(RuntimeError, match="CUDA"):
-            GeneFinder(meta=True, backend="cuda")
-    for kw in ({}, {"backend": "cuda"}):
-        with pytest.raises(RuntimeError, match="backend='refcore'"):
-            GeneFinder(**kw)
+    for kw in ({"meta": True}, {}):
+        if torch.cuda.is_available():
+            assert GeneFinder(**kw).backend == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="CUDA"):
+                GeneFinder(**kw)
+            with pytest.raises(RuntimeError, match="CUDA"):
+                GeneFinder(**kw, backend="cuda")
     assert GeneFinder(backend="refcore", meta=True).backend == "refcore"
     assert GeneFinder(backend="refcore").backend == "refcore"
     for token in ("detect", "jax"):

@@ -1,5 +1,5 @@
 """Port scoring (`score_device.score_only`) against the JAX package's,
-field by field: one shared geometry (the mega route's layout, the 24,576
+field by field, in meta mode and in single mode: one shared geometry (the mega route's layout, the 24,576
 bp slice of tests/test_meta.py), and two stacked geometries with one
 (contig, bin) per row picked by `gidx` (the std route's layout:
 KK037166 and the first 24,000 bp of SRR492066)."""
@@ -72,10 +72,16 @@ def _per_item(runner, data):
             24576)
 
 
-@pytest.fixture(scope="module", params=["shared", "per_item"])
+@pytest.fixture(scope="module", params=[
+    ("shared", True), ("per_item", True), ("shared", False),
+    ("per_item", False)],
+    ids=["shared", "per_item", "shared-single", "per_item-single"])
 def scored(request, data):
+    """Both layouts in meta mode and in single mode (`is_meta=False`: the
+    single-mode branches of the start scores, on the same bins)."""
+    layout, is_meta = request.param
     runner = TpuMetaRunner(METAGENOMIC_BINS, interpret=True)
-    packed, bin_idx, gidx, S = (_shared if request.param == "shared"
+    packed, bin_idx, gidx, S = (_shared if layout == "shared"
                                 else _per_item)(runner, data)
     BT = len(bin_idx)
     arrays = tuple(np.asarray(a) for a in runner.tables.as_tuple())
@@ -85,15 +91,15 @@ def scored(request, data):
                                    packed.items()},
         jnp.asarray(bin_idx),
         jnp.zeros(BT, jnp.int32) if gidx is None else jnp.asarray(gidx),
-        is_meta=True, closed=False, S3=S // 3, has_nonsd=nonsd, relk=32,
+        is_meta=is_meta, closed=False, S3=S // 3, has_nonsd=nonsd, relk=32,
         max_overlap=60)
     ref = [np.asarray(a) for a in ref]
     tables = tsd.BinTables.from_numpy(arrays)
     geo = tsd.to_device(packed, "cpu")
     bins = torch.from_numpy(bin_idx.astype(np.int64))
     rows = None if gidx is None else torch.from_numpy(gidx.astype(np.int64))
-    got = tsd.score_only(tables.as_tuple(), geo, bins, rows, is_meta=True,
-                         closed=False, has_nonsd=nonsd)
+    got = tsd.score_only(tables.as_tuple(), geo, bins, rows,
+                         is_meta=is_meta, closed=False, has_nonsd=nonsd)
     return ref, [a.numpy() for a in got], tables, geo, bins, rows
 
 
