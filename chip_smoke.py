@@ -61,7 +61,18 @@ Phases, each printing one line:
    -a -d -s` with the default backend against `--backend refcore`, the
    same on the short-contig set (one launch a contig), and with `-p
    meta` on MIIJ01000039: every output's bytes equal, both exit codes
-   0.
+   0;
+5. the mesh: `CudaMetaRunner(..., mesh=make_mesh(...))` over every card,
+   or two shards on cuda:0 when there is one card, on the bench set and
+   the short-contig set, each with the launch counters set to 0 just
+   before its first call and read just after: bytes against phases
+   3a/3b's refcore outputs, every shard's launches of every kernel of
+   the route (the counters' tally by device and stream), the
+   per-(contig, bin) best scores of the same launches within a tenth of
+   the winner margin of the unsharded runner's (and whether bit-equal),
+   warm wall beside the unsharded runner's; then `train_distributed` on
+   the genome and on the short-contig set, byte-equal to refcore's
+   `train`, both timed.
 
 Then one JSON line of kernel records, the card's name and power limit,
 and, last, the result line.  Exits non-zero, with no result line, when
@@ -608,6 +619,11 @@ def phase_kernels(runner):
         lambda t, c: t[:, c.long()].abs(),
         lambda t, c: _bound(_nbytes(t, c), t.shape[0] * c.shape[0] * 4,
                             t.shape[0] * c.shape[0]))
+    # the closest PyTorch composite: a gather, then a scan (two calls)
+    codes = sd._derive_m6(geo)[1][0]
+    library_ms = _time_ms(lambda: torch.cumsum(
+        table[:, codes.long()].view(B, SB // 3, 3), 1), 3)
+    del codes
     later, later_launches = [], _later_mega_launches(runner)
     for lgeo, lbins in later_launches:
         ltable = runner.tables.gene_dc[lbins].contiguous()
@@ -627,6 +643,9 @@ def phase_kernels(runner):
         "dc_chain", "pyrodigal_tpu_torch/csrc/dc_chain.cu",
         "pyrodigal_tpu/ops/star_pallas.py:293", [B, SB], dc["err"],
         dc["ms"], dc["plain_ms"], (dc["bound_ms"], dc["bound_by"]),
+        library_ms=library_ms,
+        library="torch.cumsum(table[:, codes.long()].view(B, S // 3, 3), "
+                "1): a gather plus a scan, two calls",
         bound_ratio=dc["ratio"], ms_stream=dc["ms_stream"],
         bit_identical=True, later_launches=later,
         ms_bench_pass=per_pass, bound_ms_bench_pass=bound_pass))
@@ -755,11 +774,17 @@ def _std_dp_args(runner, work, geoms):
     """The std DP's operands for one std launch, as it builds them
     (scoring and the star kernel on the card), and the launch's inputs:
     (dargs, geo, bin_idx, gidx, star args, star tables)."""
+    import torch
+
     from pyrodigal_tpu_torch.ops import dp_cuda, score_device as sd
     from pyrodigal_tpu_torch.ops import star_cuda
     from pyrodigal_tpu_torch.ops.meta_cuda import RELK
 
-    geo, bin_idx, gidx, nonsd = runner._std_inputs(work, geoms)
+    packed, bin_idx, gidx, nonsd = runner._std_inputs(work, geoms)
+    dev = runner.device
+    geo = sd.to_device(packed, dev)
+    bin_idx = torch.from_numpy(bin_idx).to(dev)
+    gidx = torch.from_numpy(gidx).to(dev)
     (ndx, stop_val, typ, strand, win_lo, valid, edge,
      cscore, ssc, rsc, usc, stw) = sd._score_items(
         runner.tables.as_tuple(), geo, bin_idx, gidx, is_meta=True,
@@ -934,15 +959,24 @@ def _refcore(seqs):
 def _zero_counts():
     from pyrodigal_tpu_torch.ops import dp_cuda, star_cuda
 
-    for counts in (star_cuda.LAUNCHES, dp_cuda.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    star_cuda.LAUNCHES.reset()
+    dp_cuda.LAUNCHES.reset()
 
 
 def _counts():
     from pyrodigal_tpu_torch.ops import dp_cuda, star_cuda
 
     return {**star_cuda.LAUNCHES, **dp_cuda.LAUNCHES}
+
+
+def _shard_counts(mesh):
+    """Launches per kernel of each shard of `mesh`: the counters' tally by
+    (kernel, device, stream), read at each shard's device and stream."""
+    from pyrodigal_tpu_torch.ops import dp_cuda, star_cuda
+
+    detail = {**star_cuda.LAUNCHES.detail(), **dp_cuda.LAUNCHES.detail()}
+    return [{k: detail.get((k, dev.index, mesh.stream(i).cuda_stream), 0)
+             for k in KERNELS} for i, dev in enumerate(mesh.devices)]
 
 
 def _timed_call(fn, *args):
@@ -1004,7 +1038,7 @@ def _drive(named, kernels):
     return {"runner": runner, "bp": sum(len(s) for s in seqs),
             "genes": sum(len(g) for g in got), "wall": wall, "warm": warm,
             "prep": prep, "refcore_s": ref_s, "launches": launches,
-            "routes": routes}
+            "routes": routes, "named": named, "ref": ref}
 
 
 def _exact_score(runner, seq, nodes_by_tt, b):
@@ -1049,7 +1083,7 @@ def phase_end_to_end_mega():
           f"drift of device best scores vs exact (100 kb, 80 kb): "
           f"{drift:.3g}", flush=True)
     runner.close()
-    return r["launches"]
+    return r
 
 
 def phase_end_to_end_std(contigs):
@@ -1096,7 +1130,7 @@ def phase_end_to_end_std(contigs):
           f"vs exact ({n_cmp} (contig, bin) pairs of 20 contigs): "
           f"{drift:.3g} (max abs {drift_abs:.3g})", flush=True)
     runner.close()
-    return r["launches"]
+    return r
 
 
 def _refcore_single(tinf, seqs, num_seq, threads):
@@ -1378,6 +1412,138 @@ def phase_cli(contigs):
           "included: " + ", ".join(report), flush=True)
 
 
+def _recording(runner):
+    """Wrap the runner's two sweeps to log [(sweep, launch, best scores of
+    its real rows)] in launch order (one launcher thread runs them in
+    dispatch order); a launch is its (contig, bin) rows."""
+    log = []
+
+    def std(work, geoms, _orig=runner._sweep_std):
+        best = _orig(work, geoms)
+        log.append(("std", list(work), best[:len(work)]))
+        return best
+
+    def mega(items, _orig=runner._sweep_mega_multi):
+        out = _orig(items)
+        best, rows, _CP, _B = out
+        log.append(("mega", [(it["ci"], tuple(it["rows"])) for it in items],
+                    best[:len(items), :len(rows)]))
+        return out
+
+    runner._sweep_std, runner._sweep_mega_multi = std, mega
+    return log
+
+
+def _mesh_drift(log, ref_log):
+    """The sharded runner's per-(contig, bin) best scores against the
+    unsharded runner's on the same launches: (pairs, worst |diff| / (0.1
+    x margin), bit-equal).  Fails beyond a tenth of the winner margin."""
+    import numpy as np
+
+    from pyrodigal_tpu_torch.ops.meta_cuda import CudaMetaRunner
+
+    if [(k, w) for k, w, _b in log] != [(k, w) for k, w, _b in ref_log]:
+        raise AssertionError("mesh: the launches differ from the unsharded "
+                             "runner's")
+    pairs, ratio, equal = 0, 0.0, True
+    for (_k, _w, got), (_k2, _w2, ref) in zip(log, ref_log):
+        ref = ref.astype(np.float64)
+        r = np.abs(got - ref) / (0.1 * CudaMetaRunner._margin(ref))
+        pairs += ref.size
+        ratio = max(ratio, float(r.max()))
+        equal = equal and np.array_equal(got, ref)
+    if ratio > 1.0:
+        raise AssertionError(f"mesh: best scores beyond a tenth of the "
+                             f"winner margin of the unsharded runner's: "
+                             f"{ratio}")
+    return pairs, ratio, equal
+
+
+def phase_mesh(sets):
+    """Phase 5: the runner with its launches sharded over a mesh (every
+    card when there is more than one, else two shards on cuda:0), on the
+    bench set (mega route) and the short-contig set (std route): bytes
+    against phases 3a/3b's refcore outputs, each shard's launches of each
+    kernel of the route, per-(contig, bin) best scores against the
+    unsharded runner's on the same launches, warm wall beside the
+    unsharded runner's (calls in turns: sharded, unsharded, sharded,
+    unsharded); then `train_distributed` on the genome and on the short
+    set against refcore's `train`, byte for byte."""
+    import torch
+
+    import pyrodigal_tpu_torch
+    from pyrodigal_tpu_torch import METAGENOMIC_BINS
+    from pyrodigal_tpu_torch.ops.meta_cuda import CudaMetaRunner
+    from pyrodigal_tpu_torch.parallel import make_mesh, train_distributed
+
+    t_phase = time.perf_counter()
+    if torch.cuda.device_count() > 1:
+        mesh = make_mesh()
+        layout = f"{mesh.size} cards, one shard each"
+    else:
+        mesh = make_mesh(devices=["cuda:0"] * 2)
+        layout = "two shards on cuda:0, one stream each"
+    out, report = {}, []
+    for label, r, kernels, route in (
+            ("bench_set", sets["bench_set"], MEGA_KERNELS, "mega"),
+            ("short_set", sets["short_set"], STD_KERNELS, "std")):
+        named = r["named"]
+        seqs = [s for _n, s in named]
+        sharded = CudaMetaRunner(METAGENOMIC_BINS, device="cuda:0",
+                                 mesh=mesh)
+        plain = CudaMetaRunner(METAGENOMIC_BINS, device="cuda:0")
+        _zero_counts()
+        got, wall = _timed_call(sharded.find_genes_batch, seqs)
+        launches = _counts()
+        shards = _shard_counts(mesh)
+        routes = dict(sharded.route_counts)
+        _bytes_equal(named, got, r["ref"], scores=False)
+        if routes["c"] or routes[route] <= 0:
+            raise AssertionError(f"mesh, {label}: routes {routes}")
+        for k, counts in enumerate(shards):
+            if min(counts[name] for name in kernels) <= 0:
+                raise AssertionError(f"mesh, {label}: shard {k} launched "
+                                     f"no kernel of the route: {counts}")
+        ref_log, log = _recording(plain), _recording(sharded)
+        _p, plain_first = _timed_call(plain.find_genes_batch, seqs)
+        _s, warm = _timed_call(sharded.find_genes_batch, seqs)
+        _p, plain_warm = _timed_call(plain.find_genes_batch, seqs)
+        pairs, ratio, equal = _mesh_drift(log, ref_log[:len(log)])
+        sharded.close()
+        plain.close()
+        bp = r["bp"]
+        out[label] = {"launches": launches, "shards": shards}
+        report.append(
+            f"{label} ({route} route, {len(seqs)} contigs, {bp} bp): first "
+            f"call {wall:.3f} s; warm {warm:.3f} s = "
+            f"{bp / warm / 1e6:.4f} Mbp/s against the unsharded runner's "
+            f"{plain_warm:.3f} s = {bp / plain_warm / 1e6:.4f} Mbp/s "
+            f"(its first call {plain_first:.3f} s); GFF/FNA/FAA bytes "
+            f"equal to refcore; routes {routes}; launches {launches}; per "
+            f"shard " + ", ".join(
+                f"{k}: " + " ".join(f"{n} {c[n]}" for n in kernels)
+                for k, c in enumerate(shards))
+            + f"; best scores of {pairs} (contig, bin) pairs against the "
+            f"unsharded runner's: worst |diff| / (0.1 x margin) "
+            f"{ratio:.3g} (limit 1), bit-equal {equal}")
+    genome = _records(GENOME)[0].seq
+    short = [s for _n, s in sets["short_set"]["named"]]
+    for label, seqs in (("genome", [genome]), ("short set", short)):
+        tinf, dist_s = _timed_call(train_distributed, mesh, *seqs)
+        finder = pyrodigal_tpu_torch.GeneFinder(backend="refcore")
+        ref, ref_s = _timed_call(finder.train, *seqs)
+        if bytes(tinf.raw) != bytes(ref.raw):
+            raise AssertionError(f"mesh: train_distributed on the {label} "
+                                 f"differs from refcore's train")
+        report.append(f"train_distributed on the {label} "
+                      f"({sum(map(len, seqs))} bp) {dist_s:.3f} s, refcore "
+                      f"train {ref_s:.3f} s, raw bytes equal")
+    print(f"phase 5 mesh ({layout}): " + "; ".join(report)
+          + f"; the phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
 def main():
     import torch
 
@@ -1398,17 +1564,24 @@ def main():
     next(k for k in kernels if k["name"] == "star").update(star_per_row)
     kernels.sort(key=lambda k: KERNELS.index(k["name"]))
     torch.cuda.empty_cache()
-    mega = phase_end_to_end_mega()
-    std = phase_end_to_end_std(contigs)
+    sets = {"bench_set": phase_end_to_end_mega(),
+            "short_set": phase_end_to_end_std(contigs)}
+    mega, std = (sets[k]["launches"] for k in ("bench_set", "short_set"))
     single_genome, single_short = phase_single(contigs)
     phase_cli(contigs)
+    mesh = phase_mesh(sets)
     for k in kernels:
         name = k["name"]
         k["launches"] = (mega[name] + std[name]
                          + single_genome["launches"][name]
-                         + single_short["launches"][name])
+                         + single_short["launches"][name]
+                         + sum(m["launches"][name] for m in mesh.values()))
         k["launches_bench_set"] = mega[name]
         k["launches_short_set"] = std[name]
+        for label, m in mesh.items():
+            k[f"launches_mesh_{label}"] = m["launches"][name]
+            k[f"launches_mesh_{label}_per_shard"] = [
+                c[name] for c in m["shards"]]
         for label, r in (("genome", single_genome),
                          ("short_set", single_short)):
             k[f"launches_single_{label}"] = r["launches"][name]

@@ -13,6 +13,7 @@ flip on such a difference (the C engine builds with -ffp-contract=off
 for the same reason).
 """
 
+import collections
 import ctypes
 import glob
 import os
@@ -134,6 +135,35 @@ def lib():
             so.kernels_error_string.restype = ctypes.c_char_p
             _lib = so
         return _lib
+
+
+class LaunchCounts(dict):
+    """Kernel launches: the total per kernel (the dict's own items) and,
+    in `detail()`, per (kernel, device index, stream handle), so that a run
+    over a mesh can show which shard launched what.  Bumped under a lock:
+    the shards of a mesh launch from threads of their own."""
+
+    def __init__(self, *names):
+        super().__init__((name, 0) for name in names)
+        self._detail = collections.Counter()
+        self._lock = threading.Lock()
+
+    def bump(self, name, device, stream):
+        with self._lock:
+            self[name] += 1
+            self._detail[(name, device.index, stream)] += 1
+
+    def reset(self):
+        with self._lock:
+            for name in self:
+                self[name] = 0
+            self._detail.clear()
+
+    def detail(self):
+        """A copy of the {(kernel, device index, stream handle): launches}
+        tally."""
+        with self._lock:
+            return dict(self._detail)
 
 
 def check(err, name):

@@ -4,8 +4,8 @@ Port of `pyrodigal_tpu.ops.dp_pallas`: the mega half (`_dp_kernel_mega`,
 `_run_kernel_mega`, `_dp_core_mega`) and the std half (`_dp_kernel_b`,
 `_run_kernel_b`, `_dp_core`).  `mega_dp` / `std_dp` launch
 `csrc/dp_mega.cu` / `csrc/dp_std.cu` for CUDA tensors and run
-`mega_dp_plain` / `std_dp_plain` for CPU tensors; `LAUNCHES` counts kernel
-launches.
+`mega_dp_plain` / `std_dp_plain` for CPU tensors; a launch runs under its
+tensors' device and on its current stream, and `LAUNCHES` counts them.
 
 Path scores accumulate in int32 fixed point (score * fxs), so every
 accumulation is exact and the reference's `>=` last-wins relaxation is an
@@ -19,7 +19,7 @@ import torch
 from .. import _build
 from .._constants import MAX_OPP_OVLP, OPER_DIST, STOP
 
-LAUNCHES = {"dp_mega": 0, "dp_std": 0}
+LAUNCHES = _build.LaunchCounts("dp_mega", "dp_std")
 
 NEG = -1e30
 NEGF_HALF = float(np.float32(-1e30)) / 2
@@ -333,16 +333,18 @@ def mega_dp(ndx, stop_val, kind4, win_lo, ovlo, has_ov, tile_nn,
             raise ValueError(f"{name}: not contiguous on {dev}")
     if fxs not in (FXS, FXS // 2):
         raise ValueError(f"fxs={fxs}: expected {FXS} or {FXS // 2}")
-    out = [torch.empty((B, NT), dtype=torch.int32, device=dev)
-           for _ in range(4)]
     lib = _build.lib()
-    _build.check(lib.dp_mega_launch(
-        *(a.data_ptr() for a in (ndx, stop_val, kind4, win_lo, ovlo, has_ov,
-                                 tile_nn, cs, rsc, usc, opv1, val3, t_sv,
-                                 t_ndx, st_wt)),
-        *(o.data_ptr() for o in out), B, NT, fxs,
-        torch.cuda.current_stream(dev).cuda_stream), "dp_mega")
-    LAUNCHES["dp_mega"] += 1
+    # the kernel's shared-memory attribute is set on the current device
+    with torch.cuda.device(dev):
+        out = [torch.empty((B, NT), dtype=torch.int32, device=dev)
+               for _ in range(4)]
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.check(lib.dp_mega_launch(
+            *(a.data_ptr() for a in (ndx, stop_val, kind4, win_lo, ovlo,
+                                     has_ov, tile_nn, cs, rsc, usc, opv1,
+                                     val3, t_sv, t_ndx, st_wt)),
+            *(o.data_ptr() for o in out), B, NT, fxs, stream), "dp_mega")
+    LAUNCHES.bump("dp_mega", dev, stream)
     return tuple(out)
 
 
@@ -594,14 +596,16 @@ def std_dp(ndx, stop_val, kind4, win_lo, cs, rsc, usc, opv1, val3, t_sv,
     if smem > limit:
         raise ValueError(f"std_dp: a row of {n} nodes needs {smem} B of "
                          f"shared memory, past the device's {limit} B")
-    out = [torch.empty((BT, n), dtype=torch.int32, device=dev)
-           for _ in range(4)]
-    _build.check(lib.dp_std_launch(
-        *(a.data_ptr() for a in (ndx, stop_val, kind4, win_lo, cs, rsc, usc,
-                                 opv1, val3, t_sv, t_ndx, st_wt)),
-        *(o.data_ptr() for o in out), BT, n,
-        torch.cuda.current_stream(dev).cuda_stream), "dp_std")
-    LAUNCHES["dp_std"] += 1
+    # the kernel's shared-memory attribute is set on the current device
+    with torch.cuda.device(dev):
+        out = [torch.empty((BT, n), dtype=torch.int32, device=dev)
+               for _ in range(4)]
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.check(lib.dp_std_launch(
+            *(a.data_ptr() for a in (ndx, stop_val, kind4, win_lo, cs, rsc,
+                                     usc, opv1, val3, t_sv, t_ndx, st_wt)),
+            *(o.data_ptr() for o in out), BT, n, stream), "dp_std")
+    LAUNCHES.bump("dp_std", dev, stream)
     return tuple(out)
 
 

@@ -20,6 +20,13 @@ engine then re-runs the winning bin(s) of each contig, so the emitted
 genes are the reference's byte for byte (reference: lib.pyx:5317-5396
 for the sequential bin sweep this replaces).
 
+Every launch goes through `parallel.meta_shard`: its rows split over
+the runner's mesh (`pyrodigal_tpu_torch.parallel.make_mesh`), the bin
+tables replicated on each mesh device, as the JAX package's runner does
+with its `mesh` (meta_tpu.py:244-250, 362-388); without one, a one-device
+mesh over `device` runs the whole launch.  The genes are the same either
+way; a mesh is slower than one card today (`CudaMetaRunner`).
+
 Single mode (`is_meta=False`) runs the same launches with one bin, the
 trained model, and `is_meta=False` scoring, as the JAX package's runner
 does.  There is no bin to choose, so the exact engine re-runs that bin
@@ -34,12 +41,14 @@ import concurrent.futures
 import threading
 
 import numpy as np
-import torch
 
 from .._constants import STOP
 from ..genes import Genes
 from ..nodes import Nodes
 from ..sequence import Sequence
+from ..parallel.mesh import Mesh, canonical
+from ..parallel.meta_shard import (sharded_score_dp_launch,
+                                   sharded_score_dp_launch_mega)
 from . import dp_cuda
 from . import score_device as sd
 
@@ -62,7 +71,16 @@ PREP_THREADS = 8
 class CudaMetaRunner:
     """Batched gene calling with on-device per-bin scoring: meta mode over
     `metagenomic_bins`, or single mode (`is_meta=False`) over a one-bin
-    list whose bin carries the trained `training_info`."""
+    list whose bin carries the trained `training_info`.
+
+    `mesh` (`parallel.make_mesh`) splits every launch's rows over its
+    devices; by default a one-device mesh over `device` runs them all.
+    A mesh gives the same genes but is slower than one card on both
+    routes today: `chip_smoke.py` phase 5 (NVIDIA H100 80GB HBM3,
+    700 W) measured two shards on one card at 1.26-1.33x the one-card
+    warm wall on the mega route and 1.77-1.81x on the std route, four
+    cards at 1.28x and 4.64x, because every shard repeats its rows'
+    per-row host scoring under one interpreter lock."""
 
     # mega-route buckets (node count, sequence length); FXS = 2048 fixed
     # point up to MEGA_FXS_LIMIT bp, 1024 above (score range 2.1e6)
@@ -83,8 +101,9 @@ class CudaMetaRunner:
 
     def __init__(self, metagenomic_bins, *, device, closed=False,
                  min_gene=90, min_edge_gene=60, max_overlap=60, mask=False,
-                 min_mask=50, is_meta=True):
-        self.device = torch.device(device)
+                 min_mask=50, is_meta=True, mesh=None):
+        self.device = canonical(device)
+        self.mesh = mesh if mesh is not None else Mesh([self.device])
         self.bins = metagenomic_bins
         self.is_meta = is_meta
         self.closed = closed
@@ -94,6 +113,15 @@ class CudaMetaRunner:
         self.mask = mask
         self.min_mask = min_mask
         self.tables = sd.BinTables(metagenomic_bins, self.device)
+        # one replica per distinct mesh device, shared by the shards that
+        # device holds
+        replicas = {self.device: self.tables}
+        for dev in self.mesh.devices:
+            if dev not in replicas:
+                replicas[dev] = sd.BinTables.from_numpy(
+                    tuple(a.cpu().numpy() for a in self.tables.as_tuple()),
+                    dev)
+        self.shard_tables = [replicas[dev] for dev in self.mesh.devices]
         self.pool = concurrent.futures.ThreadPoolExecutor(PREP_THREADS)
         # device launches run in submission order on one thread
         self.launcher = concurrent.futures.ThreadPoolExecutor(1)
@@ -241,6 +269,8 @@ class CudaMetaRunner:
         CP = next(c for c in self.MEGA_CP if c >= len(items))
         rows = sorted({b for it in items for b in it["rows"]})
         B = next(b for b in self.MEGA_ROWB if b >= len(rows))
+        D = self.mesh.size
+        B = -(-B // D) * D              # row shards must split evenly
         packed = sd.pack_geometries_multi([it["g"] for it in items],
                                           NT, SB, CP, T)
         bin_idx = np.full(B, rows[0], np.int64)
@@ -249,12 +279,11 @@ class CudaMetaRunner:
         fxs = dp_cuda.FXS \
             if max(it["g"]["slen"] for it in items) <= self.MEGA_FXS_LIMIT \
             else dp_cuda.FXS // 2
-        best = sd.score_dp_launch_mega(
-            self.tables.as_tuple(), sd.to_device(packed, self.device),
-            torch.from_numpy(bin_idx).to(self.device),
+        best = sharded_score_dp_launch_mega(
+            self.mesh, self.shard_tables, packed, bin_idx,
             is_meta=self.is_meta, closed=self.closed, has_nonsd=nonsd,
             relk=RELK, max_overlap=self.max_overlap, fxs=fxs)
-        return best.cpu().numpy(), rows, CP, B
+        return best, rows, CP, B
 
     def _pack_std(self, items):
         """Std launches from [(ci, bin_ids, geoms)] in contig order
@@ -279,16 +308,18 @@ class CudaMetaRunner:
         return launches
 
     def _std_inputs(self, work, geoms):
-        """Device inputs of one std launch: (geo, bin_idx, gidx,
-        has_nonsd).  Rows are the work items, then pads on geometry 0 and
-        bin 0 (ignored) up to a multiple of BLOCK.  The JAX package pads
-        every launch to BATCH rows so that XLA compiles one shape
-        (meta_tpu.py:214-216); a CUDA launch compiles nothing per shape,
-        and no row's result depends on another row, so the rounding
-        changes the launch's shape and no result."""
+        """Host inputs of one std launch: (packed geometry, bin_idx, gidx,
+        has_nonsd), numpy.  Rows are the work items, then pads on
+        geometry 0 and bin 0 (ignored) up to a multiple of BLOCK, or of
+        BLOCK x the mesh size, so that every shard takes whole blocks.
+        The JAX package pads every launch to BATCH rows so that XLA
+        compiles one shape (meta_tpu.py:214-216); a CUDA launch compiles
+        nothing per shape, and no row's result depends on another row, so
+        the rounding changes the launch's shape and no result."""
         keys = list(geoms)
         gmap = {k: i for i, k in enumerate(keys)}
-        BT = -(-len(work) // BLOCK) * BLOCK
+        multiple = BLOCK * self.mesh.size
+        BT = -(-len(work) // multiple) * multiple
         packed = sd.pack_geometries([geoms[k] for k in keys], len(keys),
                                     NODE_BUCKET, SEQ_BUCKET)
         bin_idx = np.zeros(BT, np.int64)
@@ -298,19 +329,16 @@ class CudaMetaRunner:
             gidx[k] = gmap[key]
         nonsd = bool((self.tables.uses_sd_np[
             [b for _ci, b, _key in work]] == 0).any())
-        dev = self.device
-        return (sd.to_device(packed, dev), torch.from_numpy(bin_idx).to(dev),
-                torch.from_numpy(gidx).to(dev), nonsd)
+        return packed, bin_idx, gidx, nonsd
 
     def _sweep_std(self, work, geoms):
         """One std launch; returns the (BT,) best scores (numpy), row k
         for work item k."""
-        geo, bin_idx, gidx, nonsd = self._std_inputs(work, geoms)
-        best = sd.score_dp_launch(
-            self.tables.as_tuple(), geo, bin_idx, gidx,
+        packed, bin_idx, gidx, nonsd = self._std_inputs(work, geoms)
+        return sharded_score_dp_launch(
+            self.mesh, self.shard_tables, packed, bin_idx, gidx,
             is_meta=self.is_meta, closed=self.closed, has_nonsd=nonsd,
             relk=RELK, max_overlap=self.max_overlap)
-        return best.cpu().numpy()
 
     # -- finishing (host, exact C on the winning bin) -------------------------
 

@@ -4,8 +4,9 @@ Port of `pyrodigal_tpu.ops.star_pallas` (`dc_phase_cumsum`,
 `phase_cumsum`, `star_tables_mega`) and of the std route's XLA star sweep
 (`score_device._score_items`).  Each wrapper launches its kernel from
 `csrc/dc_chain.cu`, `csrc/phase_cumsum.cu` or `csrc/star.cu` for CUDA
-tensors and runs the plain PyTorch version for CPU tensors; `LAUNCHES`
-counts kernel launches.
+tensors, under the tensors' device and on its current stream, and runs
+the plain PyTorch version for CPU tensors; `LAUNCHES` counts kernel
+launches.
 """
 
 import torch
@@ -13,7 +14,7 @@ import torch
 from .. import _build
 from .dp_cuda import _igm_same as igm_same, NEG
 
-LAUNCHES = {"dc_chain": 0, "phase_cumsum": 0, "star": 0}
+LAUNCHES = _build.LaunchCounts("dc_chain", "phase_cumsum", "star")
 
 T_SV_NONE = -(10 ** 9)
 
@@ -37,28 +38,34 @@ def _stream(device):
 
 TILE = 3072                 # positions a block scans at once
 THREADS = 256
-TARGET_BLOCKS = 1024        # blocks a launch aims at: ~8 an SM
+TARGET_CHUNKS = 64          # chunks a row aims at: 1,024 blocks at 16 rows
+MIN_TILES_PER_BLOCK = 2
 MAX_TILES_PER_BLOCK = 16
 U = 2.0 ** -24              # f32 unit roundoff
 
 
-def _chunking(B, S):
-    """(tiles per block, chunks per row) of a prefix-sum launch over B
-    rows of S positions: as few tiles a block as give about TARGET_BLOCKS
-    blocks."""
+def _chunking(S):
+    """(tiles per block, chunks per row) of a prefix-sum launch over rows
+    of S positions: as few tiles a block as give about TARGET_CHUNKS
+    chunks a row, but at least MIN_TILES_PER_BLOCK.  It depends on S
+    alone, so a row's sums add in one order whatever rows share its
+    launch: a launch split over a mesh gives the unsharded launch's bits.
+    The constants come from `scripts/sweep_prefix_chunking.py`, over
+    the shapes the runner launches (PERF.md §6)."""
     T = -(-S // TILE)
-    tpb = min(MAX_TILES_PER_BLOCK, max(1, -(-B * T // TARGET_BLOCKS)))
+    tpb = min(MAX_TILES_PER_BLOCK, T,
+              max(MIN_TILES_PER_BLOCK, -(-T // TARGET_CHUNKS)))
     return tpb, -(-T // tpb)
 
 
-def sum_order_depth(B, S):
+def sum_order_depth(S):
     """The most additions on a path from an input to an output of a
-    prefix-sum kernel launched at (B, S) (csrc/phase_scan.cuh): 4 a phase
-    a tile chained over the chunk's tpb tiles and an 8-level block tree
-    (the chunk totals), a chain of ceil(chunks / THREADS) and an 8-level
-    tree (the chunk's carry), the tpb tile totals the carry passes
-    through, and 2 adds into the output."""
-    tpb, chunks = _chunking(B, S)
+    prefix-sum kernel over rows of S positions (csrc/phase_scan.cuh): 4 a
+    phase a tile chained over the chunk's tpb tiles and an 8-level block
+    tree (the chunk totals), a chain of ceil(chunks / THREADS) and an
+    8-level tree (the chunk's carry), the tpb tile totals the carry
+    passes through, and 2 adds into the output."""
+    tpb, chunks = _chunking(S)
     return 5 * tpb + 18 + -(-chunks // THREADS)
 
 
@@ -67,9 +74,8 @@ def sum_order_bound(x_abs, ref):
     (`ref`, f64 rounded once): depth x u x (the phase prefix sum of
     |x|, `x_abs` (B, S)) for the kernel's additions, + u |ref| for the
     twin's one rounding.  Float64, (B, S)."""
-    B, S = x_abs.shape
     cabs = phase_cumsum_plain(x_abs.double(), rounded=False)
-    return (sum_order_depth(B, S) * U * cabs
+    return (sum_order_depth(x_abs.shape[1]) * U * cabs
             + U * ref.double().abs())
 
 
@@ -96,15 +102,18 @@ def dc_phase_cumsum(table, codes):
     _check(codes, torch.int32, (S,), "codes")
     if codes.device != table.device:
         raise ValueError("codes and table on different devices")
-    tpb, chunks = _chunking(B, S)
-    out = torch.empty((B, S), dtype=torch.float32, device=table.device)
-    scratch = torch.empty((B, chunks, 3), dtype=torch.float32,
-                          device=table.device)
+    tpb, chunks = _chunking(S)
+    dev = table.device
     lib = _build.lib()
-    _build.check(lib.dc_chain_launch(
-        table.data_ptr(), codes.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), B, S, tpb, _stream(table.device)), "dc_chain")
-    LAUNCHES["dc_chain"] += 1
+    with torch.cuda.device(dev):
+        out = torch.empty((B, S), dtype=torch.float32, device=dev)
+        scratch = torch.empty((B, chunks, 3), dtype=torch.float32,
+                              device=dev)
+        stream = _stream(dev)
+        _build.check(lib.dc_chain_launch(
+            table.data_ptr(), codes.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), B, S, tpb, stream), "dc_chain")
+    LAUNCHES.bump("dc_chain", dev, stream)
     return out
 
 
@@ -129,15 +138,18 @@ def phase_cumsum(x):
         return phase_cumsum_plain(x)
     B, S = x.shape
     _check(x, torch.float32, (B, S), "x")
-    tpb, chunks = _chunking(B, S)
-    out = torch.empty_like(x)
-    scratch = torch.empty((B, chunks, 3), dtype=torch.float32,
-                          device=x.device)
+    tpb, chunks = _chunking(S)
+    dev = x.device
     lib = _build.lib()
-    _build.check(lib.phase_cumsum_launch(
-        x.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, S, tpb,
-        _stream(x.device)), "phase_cumsum")
-    LAUNCHES["phase_cumsum"] += 1
+    with torch.cuda.device(dev):
+        out = torch.empty_like(x)
+        scratch = torch.empty((B, chunks, 3), dtype=torch.float32,
+                              device=dev)
+        stream = _stream(dev)
+        _build.check(lib.phase_cumsum_launch(
+            x.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, S, tpb,
+            stream), "phase_cumsum")
+    LAUNCHES.bump("phase_cumsum", dev, stream)
     return out
 
 
@@ -305,18 +317,20 @@ def star_tables(ndx, stop_val, kind4, edge, cs, rsc, usc, st_wt, relk,
     if any(t.device != dev for t in (ndx, stop_val, kind4, edge, rsc, usc,
                                      st_wt)):
         raise ValueError("star_tables: operands on different devices")
-    sp = torch.empty((3, B, NT), dtype=torch.int32, device=dev)
-    opv1 = torch.empty((3, B, NT), dtype=torch.float32, device=dev)
-    val3 = torch.empty((3, B, NT), dtype=torch.float32, device=dev)
-    t_sv = torch.empty((3, B, NT), dtype=torch.int32, device=dev)
-    t_ndx = torch.empty((3, B, NT), dtype=torch.int32, device=dev)
     lib = _build.lib()
-    _build.check(lib.star_launch(
-        ndx.data_ptr(), stop_val.data_ptr(), kind4.data_ptr(),
-        edge.data_ptr(), cs.data_ptr(), rsc.data_ptr(), usc.data_ptr(),
-        st_wt.data_ptr(), sp.data_ptr(), opv1.data_ptr(), val3.data_ptr(),
-        t_sv.data_ptr(), t_ndx.data_ptr(), B, NT, relk, max_overlap,
-        0 if R == 1 else NT, STAR_TILE, _star_rows(B, R), _stream(dev)),
-        "star")
-    LAUNCHES["star"] += 1
+    with torch.cuda.device(dev):
+        sp = torch.empty((3, B, NT), dtype=torch.int32, device=dev)
+        opv1 = torch.empty((3, B, NT), dtype=torch.float32, device=dev)
+        val3 = torch.empty((3, B, NT), dtype=torch.float32, device=dev)
+        t_sv = torch.empty((3, B, NT), dtype=torch.int32, device=dev)
+        t_ndx = torch.empty((3, B, NT), dtype=torch.int32, device=dev)
+        stream = _stream(dev)
+        _build.check(lib.star_launch(
+            ndx.data_ptr(), stop_val.data_ptr(), kind4.data_ptr(),
+            edge.data_ptr(), cs.data_ptr(), rsc.data_ptr(), usc.data_ptr(),
+            st_wt.data_ptr(), sp.data_ptr(), opv1.data_ptr(),
+            val3.data_ptr(), t_sv.data_ptr(), t_ndx.data_ptr(), B, NT, relk,
+            max_overlap, 0 if R == 1 else NT, STAR_TILE, _star_rows(B, R),
+            stream), "star")
+    LAUNCHES.bump("star", dev, stream)
     return sp, opv1, val3, t_sv, t_ndx

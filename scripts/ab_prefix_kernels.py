@@ -97,7 +97,10 @@ def main():
     table = runner.tables.gene_dc[bin_idx].contiguous()
     codes = [m6[0].contiguous() for m6 in sd._derive_m6(geo)]
     work, geoms = cs._first_std_launch(runner, cs.short_contigs())
-    sgeo, sbins, gidx, _nonsd = runner._std_inputs(work, geoms)
+    spacked, sbins, gidx, _nonsd = runner._std_inputs(work, geoms)
+    sgeo = sd.to_device(spacked, runner.device)
+    sbins = torch.from_numpy(sbins).to(runner.device)
+    gidx = torch.from_numpy(gidx).to(runner.device)
     stable = runner.tables.gene_dc[sbins].contiguous()
     xs = [stable.gather(1, m6[gidx].long()).contiguous()
           for m6 in sd._derive_m6(sgeo)]
@@ -142,8 +145,8 @@ def main():
               *_ptrs(x, out, scr), BT, SS, tpb)
         return out
 
-    dc_tpb, _ = star_cuda._chunking(B, S)
-    pc_tpb, _ = star_cuda._chunking(BT, SS)
+    dc_tpb, _ = star_cuda._chunking(S)
+    pc_tpb, _ = star_cuda._chunking(SS)
 
     result = {"dc_chain": {"shape": [B, S]},
               "phase_cumsum": {"shape": [BT, SS]}}

@@ -27,8 +27,12 @@ def test_port_sources_never_import_jax():
         pathlib.Path(REPO, "chip_smoke.py"),
         pathlib.Path(REPO, "scripts", "profile_torch_meta.py"),
         pathlib.Path(REPO, "scripts", "ab_dp_kernels.py"),
-        pathlib.Path(REPO, "scripts", "ab_prefix_kernels.py")]
-    assert len(sources) >= 17
+        pathlib.Path(REPO, "scripts", "ab_prefix_kernels.py"),
+        pathlib.Path(REPO, "scripts", "check_device_guard.py")]
+    assert len(sources) >= 22
+    # the multi-device layer is scanned too
+    assert sorted(p.name for p in sources if p.parent.name == "parallel") \
+        == ["__init__.py", "mesh.py", "meta_shard.py", "train.py"]
     offenders = [str(p) for p in sources
                  if FORBIDDEN.search(p.read_text())]
     assert offenders == []
@@ -51,6 +55,7 @@ def test_import_and_mega_launch_with_jax_blocked():
         "sys.meta_path.insert(0, _Block())\n"
         "sys.modules.pop('jax', None)\n"
         "import pyrodigal_tpu_torch\n"
+        "import pyrodigal_tpu_torch.parallel\n"
         "from pyrodigal_tpu_torch.ops import meta_cuda\n"
         "from pyrodigal_tpu_torch.fasta import parse\n"
         "seq = list(parse(sys.argv[1]))[0].seq[:6000]\n"

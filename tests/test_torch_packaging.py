@@ -50,10 +50,10 @@ def _install(whl, where):
     return where
 
 
-def _run_without_gcc(inst, cwd):
+def _run_without_gcc(inst, cwd, probe=PROBE):
     env = dict(os.environ, PATH="/nonexistent", PYTHONPATH=str(inst),
                OMP_NUM_THREADS="1")
-    return subprocess.run([sys.executable, "-c", PROBE.format(inst=str(inst))],
+    return subprocess.run([sys.executable, "-c", probe.format(inst=str(inst))],
                           env=env, cwd=str(cwd), capture_output=True,
                           text=True)
 
@@ -68,7 +68,11 @@ def test_wheel_ships_the_ports_engine(wheel):
                  "pyrodigal_tpu_torch/py.typed",
                  "pyrodigal_tpu_torch/__init__.pyi",
                  "pyrodigal_tpu_torch/models/metagenomic_bins.npz",
-                 "pyrodigal_tpu_torch/csrc/star.cu"):
+                 "pyrodigal_tpu_torch/csrc/star.cu",
+                 "pyrodigal_tpu_torch/parallel/__init__.py",
+                 "pyrodigal_tpu_torch/parallel/mesh.py",
+                 "pyrodigal_tpu_torch/parallel/meta_shard.py",
+                 "pyrodigal_tpu_torch/parallel/train.py"):
         assert name in names, name
     entry = [n for n in names if n.endswith("entry_points.txt")]
     text = zipfile.ZipFile(wheel).read(entry[0]).decode()
@@ -98,5 +102,32 @@ def test_installed_port_without_its_engine_says_why(wheel, tmp_path):
     assert r.returncode != 0
     assert "RuntimeError" in r.stderr and "librefcore.so" in r.stderr
     assert "is missing" in r.stderr
+    assert not (tmp_path / "build").exists()
+    assert not (inst / "build").exists()
+
+
+@pytest.mark.skipif(not os.path.exists(os.path.join(REPO, "setup.py")),
+                    reason="not running from a source tree")
+def test_installed_port_trains_on_a_cpu_mesh_without_gcc(wheel, tmp_path):
+    """The installed multi-device layer imports with no toolchain, and
+    `train_distributed` over a CPU mesh gives the exact engine's model."""
+    inst = _install(wheel, tmp_path / "inst")
+    probe = (
+        "import shutil, warnings; assert shutil.which('gcc') is None\n"
+        "from pyrodigal_tpu_torch.parallel import make_mesh, "
+        "train_distributed\n"
+        "import pyrodigal_tpu_torch.parallel as par\n"
+        "assert par.__file__.startswith({inst!r})\n"
+        "from pyrodigal_tpu_torch import GeneFinder\n"
+        "seq = 'AATGTAGGAAAAACAGCATTTTCATTTCGCCATTTTGGCGCTA' * 500\n"
+        "tinf = train_distributed(make_mesh(devices=['cpu'] * 3), seq)\n"
+        "with warnings.catch_warnings():\n"
+        "    warnings.simplefilter('ignore')\n"
+        "    ref = GeneFinder(backend='refcore').train(seq)\n"
+        "print(bytes(tinf.raw) == bytes(ref.raw))\n"
+    )
+    r = _run_without_gcc(inst, tmp_path, probe)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip() == "True"
     assert not (tmp_path / "build").exists()
     assert not (inst / "build").exists()

@@ -358,18 +358,40 @@ def test_prefix_kernels_are_deterministic(kernel, cuda_device):
     assert star_cuda.LAUNCHES[kernel] == before + 2
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["dc_chain", "phase_cumsum"])
+def test_prefix_kernels_are_batch_invariant(kernel, cuda_device):
+    """A row's sums do not depend on the rows that share its launch: the
+    rows of a 16-row launch, launched again as 8 and as 3 rows, give the
+    same bits (what lets a launch split its rows over a mesh)."""
+    B, S = 16, 832 * TILE - 7
+    table, codes = _prefix_case(B, S, 11)
+    table, codes = _t(table, cuda_device), _t(codes[:S], cuda_device)
+    if kernel == "dc_chain":
+        def run(rows):
+            return star_cuda.dc_phase_cumsum(table[rows].contiguous(), codes)
+    else:
+        x = table[:, codes.long()].contiguous()
+
+        def run(rows):
+            return star_cuda.phase_cumsum(x[rows].contiguous())
+    whole = run(slice(0, B))
+    for rows in (slice(0, 8), slice(8, 16), slice(5, 8)):
+        assert torch.equal(run(rows), whole[rows])
+
+
 @pytest.mark.parametrize("B,S", [(1, 1), (16, 30000), (128, 49152),
                                  (16, 2555904), (24, 4718592)])
 def test_prefix_chunking_covers_every_tile(B, S):
     """The launch shape the wrappers hand the kernels: every tile in one
     chunk, at most MAX_TILES_PER_BLOCK tiles a block, a grid the card
     takes; and the depth of the kernels' sums (csrc/phase_scan.cuh)."""
-    tpb, chunks = star_cuda._chunking(B, S)
+    tpb, chunks = star_cuda._chunking(S)
     T = -(-S // TILE)
     assert 1 <= tpb <= star_cuda.MAX_TILES_PER_BLOCK
     assert (chunks - 1) * tpb < T <= chunks * tpb
     assert chunks <= 65535
-    assert star_cuda.sum_order_depth(B, S) == \
+    assert star_cuda.sum_order_depth(S) == \
         5 * tpb + 18 + -(-chunks // star_cuda.THREADS)
 
 
@@ -382,7 +404,7 @@ def test_sum_order_bound_holds_for_plain_f32_order():
     ref = star_cuda.phase_cumsum_plain(x)
     f32 = x.reshape(4, -1, 3).cumsum(1).reshape(4, -1)
     bound = star_cuda.sum_order_bound(x.abs(), ref)
-    assert star_cuda.sum_order_depth(4, 60) >= 20
+    assert star_cuda.sum_order_depth(60) >= 20
     assert ((f32.double() - ref.double()).abs() <= bound).all()
     assert ((ref.double() - star_cuda.phase_cumsum_plain(
         x, rounded=False)).abs() <= star_cuda.U * ref.double().abs()).all()
