@@ -5,13 +5,14 @@
 
 Phases, each printing one line:
 
-1. build: compile the five CUDA kernels from `pyrodigal_tpu_torch/csrc`
+1. build: compile the six CUDA kernels from `pyrodigal_tpu_torch/csrc`
    (one nvcc per source, in parallel; seconds, and registers / shared
    memory / spills of every entry function);
 2. kernels: each kernel against its plain PyTorch version on the card, at
    its path's shapes, timed with CUDA events, beside its bound (bytes over
    the HBM rate or operations over the f32 rate, the larger) and, for
-   phase-cumsum, `torch.cumsum` of the same function.  The two prefix
+   phase-cumsum, `torch.cumsum` of the same function, for the seg-scan
+   `torch.cummax` of its twin's int64 keys.  The two prefix
    sums are held to their sum-order bound (`star_cuda.sum_order_bound`),
    checked bit-identical across two calls, and timed as the mean of 10
    calls in one CUDA graph.  Star's pointers and integer tables are held
@@ -26,7 +27,10 @@ Phases, each printing one line:
    the short-contig set (128 rows, 49,152 bp, 3,072 nodes): phase-cumsum
    (both code rows), star with one geometry row per bin row, and the std
    DP, also exactly equal with 16 rows emptied and on a launch of 40 kb
-   genome slices whose windows reach 3 chunks of 640;
+   genome slices whose windows reach 3 chunks of 640.  The seg-scan
+   (scoring passes 2 and 3) on both routes' scoring launches above, its
+   four calls a launch (forward and reverse, inclusive and exclusive),
+   each held bit-equal to its twin and timed in a CUDA graph;
 3. end to end, `pyrodigal_tpu_torch.GeneFinder(meta=True,
    backend="cuda").find_genes_batch`, each path with the launch counters
    set to 0 just before it and read just after:
@@ -101,13 +105,15 @@ CONTIGS = [                                   # bench.py WORKLOAD
 ]
 SHORT_EXTRA = "KK037166.fna.gz"               # a 20 kb contig, whole
 U = 2.0 ** -24                                # f32 unit roundoff
-KERNELS = ("dc_chain", "phase_cumsum", "star", "dp_mega", "dp_std")
-# every entry function of csrc/*.cu: each kernel's own, and the chunk-total
-# passes of the two prefix sums
+KERNELS = ("dc_chain", "phase_cumsum", "star", "dp_mega", "dp_std",
+           "seg_scan")
+# every entry function of csrc/*.cu: each kernel's own, the chunk-total
+# passes of the two prefix sums and the tile-summary pass of the seg-scan
 ENTRIES = tuple(f"{k}_kernel" for k in KERNELS) + (
-    "dc_chain_reduce_kernel", "phase_cumsum_reduce_kernel")
-MEGA_KERNELS = ("dc_chain", "star", "dp_mega")
-STD_KERNELS = ("phase_cumsum", "star", "dp_std")
+    "dc_chain_reduce_kernel", "phase_cumsum_reduce_kernel",
+    "seg_scan_summary_kernel")
+MEGA_KERNELS = ("dc_chain", "seg_scan", "star", "dp_mega")
+STD_KERNELS = ("phase_cumsum", "seg_scan", "star", "dp_std")
 # published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
 # float32 operations/s outside the tensor cores
 HBM_BPS = 3.35e12
@@ -483,6 +489,62 @@ def _plain_timed(fn, *args):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def _seg_scan_equal(label, got, ref):
+    """The seg-scan's (own, final) against its twin's, bit for bit."""
+    import torch
+
+    for field, a, b in zip(("own", "final"), got, ref):
+        ia, ib = a.view(torch.int32), b.view(torch.int32)
+        if not torch.equal(ia, ib):
+            raise AssertionError(f"{label} {field}: {int((ia != ib).sum())} "
+                                 f"entries differ from the twin's bits")
+
+
+def _seg_scan_timed(label, calls):
+    """The seg-scan kernel on one scoring launch's four calls [(arguments,
+    output)] (forward and reverse, inclusive and exclusive): each output
+    bit-equal to the twin's on the same inputs; then per call the mean of
+    10 calls in one CUDA graph, the twin's mean of 3, one torch.cummax of
+    the twin's int64 keys laid out (BT * 3, n), contiguous along n (mean
+    of 3), and the bound (each operand read once, both outputs written
+    once; a max per node and channel).  Returns per-call lists and their
+    means."""
+    import torch
+
+    from pyrodigal_tpu_torch.ops import star_cuda
+
+    forms = [a[6:] for a, _o in calls]
+    if forms != [(False, False), (True, False), (False, True), (True, True)]:
+        raise AssertionError(f"seg_scan ({label}): calls {forms}")
+    rec = {"ms": [], "plain_ms": [], "library_ms": [], "bound_ms": []}
+    for a, got in calls:
+        _seg_scan_equal(f"seg_scan ({label}, reverse {a[6]}, exclusive "
+                        f"{a[7]})", got, star_cuda.seg_scan_plain(*a))
+        BT, n = a[0].shape
+        rec["ms"].append(_graph_ms(lambda: star_cuda.seg_scan(*a), 10))
+        rec["plain_ms"].append(
+            _time_ms(lambda: star_cuda.seg_scan_plain(*a), 3))
+        keys = star_cuda.seg_scan_keys(*a[:5], a[6])[0]
+        keys = keys.permute(0, 2, 1).reshape(BT * 3, n).contiguous()
+        rec["library_ms"].append(_time_ms(lambda: torch.cummax(keys, 1), 3))
+        del keys
+        bound_ms, bound_by = _bound(
+            _nbytes(*(t for t in a if torch.is_tensor(t))), _nbytes(*got),
+            BT * n * 3)
+        assert bound_by == "bytes", bound_by
+        rec["bound_ms"].append(bound_ms)
+    out = {f"{k}_calls": v for k, v in rec.items()}
+    out.update({k: sum(v) / len(v) for k, v in rec.items()})
+    out["shape"] = list(calls[0][0][0].shape)
+    out["ms_per_scoring_launch"] = sum(rec["ms"])
+    return out
+
+
+def _seg_calls(calls):
+    """The seg-scan calls of a `_captured` run: [(arguments, output)]."""
+    return [(a, out) for name, a, out in calls if name == "seg_scan"]
+
+
 def _entry_name(mangled):
     """The entry function of ENTRIES a (mangled) ptxas name denotes, or
     None: `<length><name>` in an Itanium-mangled name."""
@@ -650,9 +712,27 @@ def phase_kernels(runner):
         bit_identical=True, later_launches=later,
         ms_bench_pass=per_pass, bound_ms_bench_pass=bound_pass))
 
+    # -- the genome's scoring: its four seg-scan calls against the twin
+    # and timed -----------------------------------------------------------
+    scored = []
+    seg = _seg_calls(_captured(
+        lambda: scored.append(_scores(runner, geo, bin_idx))))
+    seg_rec = _seg_scan_timed("genome", seg)
+    del seg
+    out.append(_record(
+        "seg_scan", "pyrodigal_tpu_torch/csrc/seg_scan.cu",
+        "pyrodigal_tpu/ops/score_device.py:347", seg_rec["shape"], 0.0,
+        seg_rec["ms"], seg_rec["plain_ms"], (seg_rec["bound_ms"], "bytes"),
+        library_ms=seg_rec["library_ms"],
+        library="torch.cummax(keys, 1) of the twin's int64 keys laid out "
+                "(BT * 3, n), contiguous along n, one call a scan",
+        bit_equal=True, **{k: v for k, v in seg_rec.items()
+                           if k.endswith("_calls")
+                           or k == "ms_per_scoring_launch"}))
+
     # -- star at (16, 163,840) from the genome's scores -------------------
     (ndx, stop_val, typ, strand, win_lo, valid, edge,
-     cscore, ssc, rsc, usc, stw) = _scores(runner, geo, bin_idx)
+     cscore, ssc, rsc, usc, stw) = scored.pop()
     geometry = dp_cuda.mega_geometry(ndx[0], stop_val[0], typ[0], strand[0],
                                      valid[0], True)
     cs = (cscore + ssc).contiguous()
@@ -749,8 +829,11 @@ def phase_kernels(runner):
         f"ms, at the later mega launches " + ", ".join(
             f"{x['shape']} {x['ms']:.4f} ms (bound {x['bound_ms']:.4f})"
             for x in later) + f", {per_pass:.4f} ms a bench pass (bound "
-        f"{bound_pass:.4f}); prefix kernels the mean of 10 calls in a CUDA "
-        f"graph", flush=True)
+        f"{bound_pass:.4f}); seg_scan the mean of the genome launch's four "
+        f"calls ({', '.join(f'{x:.4f}' for x in seg_rec['ms_calls'])} ms), "
+        f"bit-equal to its twin, torch.cummax of the keys "
+        f"{seg_rec['library_ms']:.3f} ms; prefix kernels and seg_scan the "
+        f"mean of 10 calls in a CUDA graph", flush=True)
     return out
 
 
@@ -813,8 +896,12 @@ def phase_kernels_std(runner, contigs):
     from pyrodigal_tpu_torch.sequence import Sequence
 
     work, geoms = _first_std_launch(runner, contigs)
-    dargs, geo, bin_idx, gidx, sargs, tables = _std_dp_args(runner, work,
-                                                            geoms)
+    held = []
+    seg = _seg_calls(_captured(
+        lambda: held.append(_std_dp_args(runner, work, geoms))))
+    dargs, geo, bin_idx, gidx, sargs, tables = held.pop()
+    seg_std = _seg_scan_timed("first std launch", seg)
+    del seg
     BT, S, n = (bin_idx.shape[0], geo["digits"].shape[1],
                 geo["n32"].shape[2])
     out = []
@@ -922,10 +1009,16 @@ def phase_kernels_std(runner, contigs):
           f"err {star_err:.3g}, float tables bit-equal to plain: "
           f"{star_bits}, {swork['stops']} stops, candidates per stop mean "
           f"{swork['candidates_per_stop_mean']:.3f} max "
-          f"{swork['candidates_per_stop_max']}; kernels the mean of 10 calls, plain "
-          f"phase-cumsum, star and torch.cumsum of 3, the plain DPs one "
+          f"{swork['candidates_per_stop_max']}; seg_scan {seg_std['shape']}: "
+          f"kernel {seg_std['ms']:.4f} ms (calls " + ", ".join(
+              f"{x:.4f}" for x in seg_std["ms_calls"]) + f"), plain "
+          f"{seg_std['plain_ms']:.3f} ms, bound {seg_std['bound_ms']:.4f} "
+          f"ms (bytes), torch.cummax of the keys "
+          f"{seg_std['library_ms']:.3f} ms, bit-equal to its twin; kernels "
+          f"the mean of 10 calls, plain phase-cumsum, star, seg_scan, "
+          f"torch.cumsum and torch.cummax of 3, the plain DPs one "
           f"host-timed call", flush=True)
-    return out, star
+    return out, star, seg_std
 
 
 def _outputs(genes, name, scores=False):
@@ -1197,6 +1290,7 @@ WRAPPERS = {
     "star": ("star_cuda", "star_tables", "star_tables_plain"),
     "dp_mega": ("dp_cuda", "mega_dp", "mega_dp_plain"),
     "dp_std": ("dp_cuda", "std_dp", "std_dp_plain"),
+    "seg_scan": ("star_cuda", "seg_scan", "seg_scan_plain"),
 }
 
 
@@ -1229,9 +1323,10 @@ def _single_kernel_checks(label, sweep, args):
     """Every kernel call of one single-mode launch against its plain twin
     on the same inputs: the prefix sums within their sum-order bound,
     star's pointers and integer tables exact and its floats within rtol
-    1e-6, the DPs' four outputs exactly equal.  The mega DP's twin runs on
-    a CPU copy of the inputs, as the CPU tests run it (on the card it
-    would take minutes at the genome's 153 k node steps).  Returns
+    1e-6, the seg-scan bit for bit, the DPs' four outputs exactly equal.
+    The mega DP's twin runs on a CPU copy of the inputs, as the CPU tests
+    run it (on the card it would take minutes at the genome's 153 k node
+    steps).  Returns
     {kernel: (max abs err, shape)}."""
     import torch
 
@@ -1252,6 +1347,9 @@ def _single_kernel_checks(label, sweep, args):
         elif name == "star":
             err, _bits = _star_check(tag, got, plain(*a))
             shape = list(a[4].shape)
+        elif name == "seg_scan":
+            _seg_scan_equal(tag, got, plain(*a))
+            err, shape = 0.0, list(a[0].shape)
         else:
             if name == "dp_mega":
                 ref = plain(*(x.cpu() if torch.is_tensor(x) else x
@@ -1558,10 +1656,12 @@ def main():
     contigs = short_contigs()
     runner = CudaMetaRunner(METAGENOMIC_BINS, device="cuda:0")
     kernels = phase_kernels(runner)
-    std_kernels, star_per_row = phase_kernels_std(runner, contigs)
+    std_kernels, star_per_row, seg_std = phase_kernels_std(runner, contigs)
     runner.close()
     kernels += std_kernels
     next(k for k in kernels if k["name"] == "star").update(star_per_row)
+    next(k for k in kernels if k["name"] == "seg_scan").update(
+        {f"{k}_std": v for k, v in seg_std.items()})
     kernels.sort(key=lambda k: KERNELS.index(k["name"]))
     torch.cuda.empty_cache()
     sets = {"bench_set": phase_end_to_end_mega(),

@@ -8,10 +8,11 @@ geometry (a single contig, or several laid end to end by
 `pack_geometries_multi`) with the candidate bins as rows, and the std
 route's G stacked geometries (`pack_geometries`) with one work item
 (contig, bin) per row, picked by `gidx`.  The TPU devices of the reference
-(one-hot matrix-unit lookups, masked-roll window gathers, the blocked
-associative scan, the geometry byte-packing for a slow link) become
-plain gathers and scans; the dc prefix sums run in the dc-chain kernel
-(shared geometry) or the phase-cumsum kernel (per-row geometry).
+(one-hot matrix-unit lookups, masked-roll window gathers, the geometry
+byte-packing for a slow link) become plain gathers; the dc prefix sums
+run in the dc-chain kernel (shared geometry) or the phase-cumsum kernel
+(per-row geometry), and the blocked associative scan of passes 2 and 3
+in the seg-scan kernel (`star_cuda.seg_scan`).
 
 The numpy geometry helpers are copies of the reference's: the reference
 modules import jax at the top, and this package must not.
@@ -311,59 +312,6 @@ def to_device(packed, device):
 # scoring
 # --------------------------------------------------------------------------
 
-_MASK32 = 0xFFFFFFFF
-
-
-def _ordered(x):
-    """Order-preserving map of f32 values to int64 keys in [0, 2^32)."""
-    b = x.view(torch.int32).long() & _MASK32
-    return torch.where(b >= 2 ** 31, _MASK32 - b, b + 2 ** 31)
-
-
-def _unordered(k):
-    """Inverse of `_ordered`."""
-    b = torch.where(k >= 2 ** 31, k - 2 ** 31, _MASK32 - k)
-    b = torch.where(b >= 2 ** 31, b - 2 ** 32, b)
-    return b.to(torch.int32).view(torch.float32)
-
-
-def _seg_scan(values, is_elem, is_reset, reset_val, init, reverse):
-    """Segmented running-max scan along axis 1.
-
-    values: (BT, n, C); is_elem/is_reset: (R, n, C) bool, R = 1 or BT;
-    init: (BT, C) seed state applied before (after, if reverse) the
-    scanned axis.  Returns
-    (inclusive, exclusive, final) of shapes (BT, n, C) / (BT, C).
-
-    A cummax over int64 keys (segment id << 32 | order-preserving f32
-    bits) is exact: the segment id dominates, so the running max restarts
-    at each reset."""
-    NEGI = np.float32(-3e38)
-    m = torch.where(is_reset, np.float32(reset_val),
-                    torch.where(is_elem, values, NEGI))
-    r = is_reset.expand_as(m)
-    if reverse:
-        m = m.flip(1)
-        r = r.flip(1)
-    seg = r.long().cumsum(1)
-    ms = _unordered(torch.cummax((seg << 32) | _ordered(m), 1).values
-                    & _MASK32)
-    seed = init[:, None, :]
-    incl = torch.where(seg > 0, ms, torch.maximum(seed, ms))
-    excl = torch.cat([seed, incl[:, :-1]], 1)
-    final = incl[:, -1]
-    if reverse:
-        incl = incl.flip(1)
-        excl = excl.flip(1)
-    return incl, excl, final
-
-
-def _sel_phase(scan, phase):
-    """Pick each node's own channel from a (BT, n, 3) scan; phase (R, n)."""
-    return scan.gather(2, phase.long()[..., None].expand(
-        scan.shape[0], -1, 1))[..., 0]
-
-
 def _take(table, idx):
     """``table[b, idx[b, k]]`` for a (BT, K) table and (R, n) indices,
     R = 1 (shared by every row) or BT."""
@@ -553,20 +501,16 @@ def _score_items(tables, geo, bin_idx, gidx=None, *, is_meta, closed,
     cscore = torch.where(start, torch.where(fwd, cs1_f, cs1_r), 0.0)
     del Cf, Cr
 
-    # ---- pass 2: ascending-coding penalty (segmented running max) --------
-    ph1 = torch.nn.functional.one_hot(phase.long(), 3).bool()  # (R, n, 3)
+    # ---- pass 2: ascending-coding penalty (segmented running max, one
+    # channel per phase: the seg-scan kernel) ------------------------------
     neg1e4 = torch.full((BT, 3), -1e4, dtype=F32, device=dev)
-
-    def chan(pred):
-        return pred[..., None] & ph1
-
-    v_c = cscore[..., None].expand(BT, n, 3)
-    inc_f, _, fin2f = _seg_scan(v_c, chan(start & fwd), chan(stop & fwd),
-                                -1e4, neg1e4, False)
-    inc_r, _, fin2r = _seg_scan(v_c, chan(start & ~fwd), chan(stop & ~fwd),
-                                -1e4, neg1e4, True)
-    run2 = torch.where(fwd, _sel_phase(inc_f, phase),
-                       _sel_phase(inc_r, phase))
+    start_f, start_r = start & fwd, start & ~fwd
+    stop_f, stop_r = stop & fwd, stop & ~fwd
+    run2_f, _ = star_cuda.seg_scan(cscore, start_f, stop_f, phase, -1e4,
+                                   neg1e4, False, False)
+    run2_r, fin2r = star_cuda.seg_scan(cscore, start_r, stop_r, phase, -1e4,
+                                       neg1e4, True, False)
+    run2 = torch.where(fwd, run2_f, run2_r)
     cscore = torch.where(start, 2.0 * cscore - run2, cscore)
 
     # ---- pass 3: length factor (carries pass-2 scan state, as the
@@ -581,13 +525,11 @@ def _score_items(tables, geo, bin_idx, gidx=None, *, is_meta, closed,
         gsize > 1000.0,
         _fdiv((lfmax - lfmin) * (gsize - 80.0), 920.0),
         torch.log1p(-tmp) - gsize * log_ns - lfmin)
-    v_l = lfac_raw[..., None].expand(BT, n, 3)
-    _, exc3f, fin3f = _seg_scan(v_l, chan(start & fwd), chan(stop & fwd),
-                                -1e4, fin2r, False)
-    _, exc3r, _ = _seg_scan(v_l, chan(start & ~fwd), chan(stop & ~fwd),
-                            -1e4, fin3f, True)
-    run3 = torch.where(fwd, _sel_phase(exc3f, phase),
-                       _sel_phase(exc3r, phase))
+    run3_f, fin3f = star_cuda.seg_scan(lfac_raw, start_f, stop_f, phase,
+                                       -1e4, fin2r, False, True)
+    run3_r, _ = star_cuda.seg_scan(lfac_raw, start_r, stop_r, phase, -1e4,
+                                   fin3f, True, True)
+    run3 = torch.where(fwd, run3_f, run3_r)
     lfac = torch.where(
         lfac_raw > run3, lfac_raw,
         lfac_raw - torch.clamp(torch.minimum(run3 - lfac_raw, lfac_raw),

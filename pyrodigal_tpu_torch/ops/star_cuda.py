@@ -1,20 +1,24 @@
-"""Phase prefix sums and the star sweep: CUDA kernels and plain twins.
+"""Phase prefix sums, the scoring scan and the star sweep: CUDA kernels
+and plain twins.
 
 Port of `pyrodigal_tpu.ops.star_pallas` (`dc_phase_cumsum`,
-`phase_cumsum`, `star_tables_mega`) and of the std route's XLA star sweep
-(`score_device._score_items`).  Each wrapper launches its kernel from
-`csrc/dc_chain.cu`, `csrc/phase_cumsum.cu` or `csrc/star.cu` for CUDA
-tensors, under the tensors' device and on its current stream, and runs
-the plain PyTorch version for CPU tensors; `LAUNCHES` counts kernel
-launches.
+`phase_cumsum`, `star_tables_mega`), of the scoring passes' segmented
+running max (`score_device._seg_scan`, an XLA scan) and of the std
+route's XLA star sweep (`score_device._score_items`).  Each wrapper
+launches its kernel from `csrc/dc_chain.cu`, `csrc/phase_cumsum.cu`,
+`csrc/seg_scan.cu` or `csrc/star.cu` for CUDA tensors, under the
+tensors' device and on its current stream, and runs the plain PyTorch
+version for CPU tensors; `LAUNCHES` counts kernel launches.
 """
 
+import numpy as np
 import torch
 
 from .. import _build
 from .dp_cuda import _igm_same as igm_same, NEG
 
-LAUNCHES = _build.LaunchCounts("dc_chain", "phase_cumsum", "star")
+LAUNCHES = _build.LaunchCounts("dc_chain", "phase_cumsum", "star",
+                               "seg_scan")
 
 T_SV_NONE = -(10 ** 9)
 
@@ -151,6 +155,115 @@ def phase_cumsum(x):
             stream), "phase_cumsum")
     LAUNCHES.bump("phase_cumsum", dev, stream)
     return out
+
+
+# --------------------------------------------------------------------------
+# the scoring passes' segmented running max (csrc/seg_scan.cu)
+# --------------------------------------------------------------------------
+
+SEG_TILE = 2304       # walk positions a block of the seg-scan kernel takes
+_MASK32 = 0xFFFFFFFF
+
+
+def _ordered(x):
+    """Order-preserving map of f32 values to int64 keys in [0, 2^32)."""
+    b = x.view(torch.int32).long() & _MASK32
+    return torch.where(b >= 2 ** 31, _MASK32 - b, b + 2 ** 31)
+
+
+def _unordered(k):
+    """Inverse of `_ordered`."""
+    b = torch.where(k >= 2 ** 31, k - 2 ** 31, _MASK32 - k)
+    b = torch.where(b >= 2 ** 31, b - 2 ** 32, b)
+    return b.to(torch.int32).view(torch.float32)
+
+
+def seg_scan_keys(values, elem, reset, phase, reset_val, reverse):
+    """The plain twin's (BT, n, 3) int64 scan keys, segment id << 32 |
+    `_ordered` value, in walk order (reversed if `reverse`), and the
+    (BT, n, 3) reset counts: a cummax of the keys along the walk is the
+    running max of each segment.  Arguments as `seg_scan_plain`'s."""
+    ph = torch.nn.functional.one_hot(phase.long(), 3).bool()   # (R, n, 3)
+    is_elem = elem[..., None] & ph
+    is_reset = reset[..., None] & ph
+    BT, n = values.shape
+    NEGI = np.float32(-3e38)
+    m = torch.where(is_reset, np.float32(reset_val),
+                    torch.where(is_elem, values[..., None].expand(BT, n, 3),
+                                NEGI))
+    r = is_reset.expand_as(m)
+    if reverse:
+        m = m.flip(1)
+        r = r.flip(1)
+    seg = r.long().cumsum(1)
+    return (seg << 32) | _ordered(m), seg
+
+
+def seg_scan_plain(values, elem, reset, phase, reset_val, init, reverse,
+                   exclusive):
+    """Segmented running max along the nodes, one channel per phase.
+
+    values (BT, n) f32; elem, reset (R, n) bool and phase (R, n) int in
+    {0, 1, 2}, R = 1 (one geometry row for every row) or BT; init (BT, 3)
+    f32, the state before the walk (after the nodes, if `reverse`).  At
+    node i of channel c = phase[i] a reset sets channel c to reset_val,
+    an elem takes max(channel c, values[b, i]).  Returns (own, final):
+    own (BT, n) f32, each node's own channel after it (before it, if
+    `exclusive`); final (BT, 3) f32, the channels after the walk.
+
+    A cummax over int64 keys (segment id << 32 | order-preserving f32
+    bits) is exact: the segment id dominates, so the running max restarts
+    at each reset."""
+    BT, n = values.shape
+    keys, seg = seg_scan_keys(values, elem, reset, phase, reset_val,
+                              reverse)
+    ms = _unordered(torch.cummax(keys, 1).values & _MASK32)
+    seed = init[:, None, :]
+    incl = torch.where(seg > 0, ms, torch.maximum(seed, ms))
+    scan = torch.cat([seed, incl[:, :-1]], 1) if exclusive else incl
+    final = incl[:, -1]
+    if reverse:
+        scan = scan.flip(1)
+    own = scan.gather(2, phase.long()[..., None].expand(BT, -1, 1))[..., 0]
+    return own, final
+
+
+def seg_scan(values, elem, reset, phase, reset_val, init, reverse,
+             exclusive):
+    """The segmented running max of scoring passes 2 and 3
+    (`seg_scan_plain`'s arguments and results); on the card elem and
+    reset are bool, phase int32, all contiguous.  Bit-equal to the twin
+    whatever the tiling: a max is exact."""
+    if not values.is_cuda:
+        return seg_scan_plain(values, elem, reset, phase, reset_val, init,
+                              reverse, exclusive)
+    BT, n = values.shape
+    R = elem.shape[0]
+    if R not in (1, BT) or n < 1:
+        raise ValueError(f"seg_scan: {R} geometry rows for ({BT}, {n})")
+    _check(values, torch.float32, (BT, n), "values")
+    _check(elem, torch.bool, (R, n), "elem")
+    _check(reset, torch.bool, (R, n), "reset")
+    _check(phase, torch.int32, (R, n), "phase")
+    _check(init, torch.float32, (BT, 3), "init")
+    dev = values.device
+    if any(t.device != dev for t in (elem, reset, phase, init)):
+        raise ValueError("seg_scan: operands on different devices")
+    tiles = -(-n // SEG_TILE)
+    lib = _build.lib()
+    with torch.cuda.device(dev):
+        own = torch.empty_like(values)
+        final = torch.empty((BT, 3), dtype=torch.float32, device=dev)
+        scratch = torch.empty((BT, tiles, 3), dtype=torch.int64, device=dev)
+        stream = _stream(dev)
+        _build.check(lib.seg_scan_launch(
+            values.data_ptr(), elem.data_ptr(), reset.data_ptr(),
+            phase.data_ptr(), init.data_ptr(), own.data_ptr(),
+            final.data_ptr(), scratch.data_ptr(), BT, n,
+            0 if R == 1 else n, tiles, float(reset_val), int(reverse),
+            int(exclusive), stream), "seg_scan")
+    LAUNCHES.bump("seg_scan", dev, stream)
+    return own, final
 
 
 # --------------------------------------------------------------------------

@@ -39,7 +39,7 @@ PASSES = 5
 TOP = 12
 # entry functions of csrc/*.cu, listed apart from the top TOP
 PORT_KERNELS = ("dc_chain_", "phase_cumsum_", "star_kernel", "dp_mega_kernel",
-                "dp_std_kernel")
+                "dp_std_kernel", "seg_scan_")
 
 
 def _sync_time(fn):
@@ -152,6 +152,9 @@ def profiled_pass(finder, seqs, top):
     device_ms = sum(r[2] for r in rows)
     return {"wall_s": wall, "device_ms": device_ms,
             "busy": device_ms / 1e3 / wall,
+            # PyTorch's scans along an outer axis, one thread a column
+            "outer_dim_scans_ms": sum(ms for k, _n, ms in rows
+                                      if "scan_outer_dim" in k),
             "kernels": [{"name": k, "calls": n, "self_device_ms": ms}
                         for k, n, ms in rows[:top]],
             # the port's own kernels (csrc/*.cu), whatever their rank
@@ -177,7 +180,11 @@ def profile_set(finder, runner, seqs):
           f"{max(replay['finishing_s'], default=0.0)})", flush=True)
     prof = profiled_pass(finder, seqs, TOP)
     print(f"  profiled pass: wall {prof['wall_s']} s, device "
-          f"{prof['device_ms']} ms, busy {prof['busy']}", flush=True)
+          f"{prof['device_ms']} ms, busy {prof['busy']}; outer-axis scans "
+          f"{prof['outer_dim_scans_ms']} ms", flush=True)
+    for k in prof["port_kernels"]:
+        print(f"  port kernel {k['self_device_ms']:10.3f} ms "
+              f"{k['calls']:5d}x {k['name'][:80]}")
     for k in prof["kernels"]:
         print(f"  {k['self_device_ms']:10.3f} ms {k['calls']:5d}x "
               f"{k['name'][:100]}")

@@ -69,6 +69,7 @@ def test_wheel_ships_the_ports_engine(wheel):
                  "pyrodigal_tpu_torch/__init__.pyi",
                  "pyrodigal_tpu_torch/models/metagenomic_bins.npz",
                  "pyrodigal_tpu_torch/csrc/star.cu",
+                 "pyrodigal_tpu_torch/csrc/seg_scan.cu",
                  "pyrodigal_tpu_torch/parallel/__init__.py",
                  "pyrodigal_tpu_torch/parallel/mesh.py",
                  "pyrodigal_tpu_torch/parallel/meta_shard.py",
