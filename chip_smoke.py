@@ -12,7 +12,7 @@ Phases, each printing one line:
    its path's shapes, timed with CUDA events, beside its bound (bytes over
    the HBM rate or operations over the f32 rate, the larger) and, for
    phase-cumsum, `torch.cumsum` of the same function, for the seg-scan
-   `torch.cummax` of its twin's int64 keys.  The two prefix
+   one `torch.cummax` of its four walks' int64 keys.  The two prefix
    sums are held to their sum-order bound (`star_cuda.sum_order_bound`),
    checked bit-identical across two calls, and timed as the mean of 10
    calls in one CUDA graph.  Star's pointers and integer tables are held
@@ -28,9 +28,9 @@ Phases, each printing one line:
    (both code rows), star with one geometry row per bin row, and the std
    DP, also exactly equal with 16 rows emptied and on a launch of 40 kb
    genome slices whose windows reach 3 chunks of 640.  The seg-scan
-   (scoring passes 2 and 3) on both routes' scoring launches above, its
-   four calls a launch (forward and reverse, inclusive and exclusive),
-   each held bit-equal to its twin and timed in a CUDA graph;
+   (scoring passes 2 and 3) on both routes' scoring launches above, one
+   call a launch (the four chained walks), held bit-equal to its twin and
+   to a second call, and timed in a CUDA graph and on the stream;
 3. end to end, `pyrodigal_tpu_torch.GeneFinder(meta=True,
    backend="cuda").find_genes_batch`, each path with the launch counters
    set to 0 just before it and read just after:
@@ -108,10 +108,11 @@ U = 2.0 ** -24                                # f32 unit roundoff
 KERNELS = ("dc_chain", "phase_cumsum", "star", "dp_mega", "dp_std",
            "seg_scan")
 # every entry function of csrc/*.cu: each kernel's own, the chunk-total
-# passes of the two prefix sums and the tile-summary pass of the seg-scan
-ENTRIES = tuple(f"{k}_kernel" for k in KERNELS) + (
+# passes of the two prefix sums, and the seg-scan's two designs (one block
+# a row; a look-back over tiles)
+ENTRIES = tuple(f"{k}_kernel" for k in KERNELS if k != "seg_scan") + (
     "dc_chain_reduce_kernel", "phase_cumsum_reduce_kernel",
-    "seg_scan_summary_kernel")
+    "seg_scan_rows_kernel", "seg_scan_chain_kernel")
 MEGA_KERNELS = ("dc_chain", "seg_scan", "star", "dp_mega")
 STD_KERNELS = ("phase_cumsum", "seg_scan", "star", "dp_std")
 # published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
@@ -490,53 +491,72 @@ def _plain_timed(fn, *args):
 
 
 def _seg_scan_equal(label, got, ref):
-    """The seg-scan's (own, final) against its twin's, bit for bit."""
+    """The seg-scan's (run2, run3) against its twin's, bit for bit."""
     import torch
 
-    for field, a, b in zip(("own", "final"), got, ref):
+    for field, a, b in zip(("run2", "run3"), got, ref):
         ia, ib = a.view(torch.int32), b.view(torch.int32)
         if not torch.equal(ia, ib):
             raise AssertionError(f"{label} {field}: {int((ia != ib).sum())} "
                                  f"entries differ from the twin's bits")
 
 
-def _seg_scan_timed(label, calls):
-    """The seg-scan kernel on one scoring launch's four calls [(arguments,
-    output)] (forward and reverse, inclusive and exclusive): each output
-    bit-equal to the twin's on the same inputs; then per call the mean of
-    10 calls in one CUDA graph, the twin's mean of 3, one torch.cummax of
-    the twin's int64 keys laid out (BT * 3, n), contiguous along n (mean
-    of 3), and the bound (each operand read once, both outputs written
-    once; a max per node and channel).  Returns per-call lists and their
-    means."""
+def _walk_keys(cscore, lfac_raw, code, reset_val=-1e4):
+    """The twin's int64 keys of the four walks (f2, r2, f3, r3: the
+    forward strand's and the reverse strand's walk over cscore, then over
+    lfac_raw), each laid out (BT * 3, n), stacked: (4 * BT * 3, n),
+    contiguous along n."""
     import torch
 
     from pyrodigal_tpu_torch.ops import star_cuda
 
-    forms = [a[6:] for a, _o in calls]
-    if forms != [(False, False), (True, False), (False, True), (True, True)]:
-        raise AssertionError(f"seg_scan ({label}): calls {forms}")
-    rec = {"ms": [], "plain_ms": [], "library_ms": [], "bound_ms": []}
-    for a, got in calls:
-        _seg_scan_equal(f"seg_scan ({label}, reverse {a[6]}, exclusive "
-                        f"{a[7]})", got, star_cuda.seg_scan_plain(*a))
-        BT, n = a[0].shape
-        rec["ms"].append(_graph_ms(lambda: star_cuda.seg_scan(*a), 10))
-        rec["plain_ms"].append(
-            _time_ms(lambda: star_cuda.seg_scan_plain(*a), 3))
-        keys = star_cuda.seg_scan_keys(*a[:5], a[6])[0]
-        keys = keys.permute(0, 2, 1).reshape(BT * 3, n).contiguous()
-        rec["library_ms"].append(_time_ms(lambda: torch.cummax(keys, 1), 3))
-        del keys
-        bound_ms, bound_by = _bound(
-            _nbytes(*(t for t in a if torch.is_tensor(t))), _nbytes(*got),
-            BT * n * 3)
-        assert bound_by == "bytes", bound_by
-        rec["bound_ms"].append(bound_ms)
-    out = {f"{k}_calls": v for k, v in rec.items()}
-    out.update({k: sum(v) / len(v) for k, v in rec.items()})
-    out["shape"] = list(calls[0][0][0].shape)
-    out["ms_per_scoring_launch"] = sum(rec["ms"])
+    phase = (code & 3).to(torch.int32)
+    start, stop, fwd = (((code >> s) & 1).bool() for s in (2, 3, 4))
+    keys = []
+    for values, forward in ((cscore, True), (cscore, False),
+                            (lfac_raw, True), (lfac_raw, False)):
+        strand = fwd if forward else ~fwd
+        keys.append(star_cuda.seg_scan_keys(
+            values, start & strand, stop & strand, phase, reset_val,
+            not forward)[0].permute(0, 2, 1))
+    return torch.stack(keys).reshape(-1, cscore.shape[1]).contiguous()
+
+
+def _seg_scan_timed(label, calls):
+    """The seg-scan kernel on one scoring launch's call [(arguments,
+    output)]: both outputs bit-equal to the twin's on the same inputs and
+    to a second call's; then the mean of 10 calls in one CUDA graph
+    (`ms`) and through the wrapper on the stream (`ms_stream`: host
+    launch cost included), the twin's mean of 3, one torch.cummax of the
+    four walks' int64 keys stacked (`_walk_keys`, mean of 3), and the
+    bound: cscore, lfac_raw and the code read once, run2 and run3 written
+    once; a max a node, channel and walk."""
+    import torch
+
+    from pyrodigal_tpu_torch.ops import star_cuda
+
+    if len(calls) != 1:
+        raise AssertionError(f"seg_scan ({label}): {len(calls)} calls a "
+                             f"scoring launch")
+    ((a, got),) = calls
+    _seg_scan_equal(f"seg_scan ({label})", got,
+                    star_cuda.seg_scan_passes_plain(*a))
+    _seg_scan_equal(f"seg_scan ({label}, a second call)", got,
+                    star_cuda.seg_scan_passes(*a))
+    BT, n = a[0].shape
+    keys = _walk_keys(*a)
+    out = {"ms": _graph_ms(lambda: star_cuda.seg_scan_passes(*a), 10),
+           "ms_stream": _time_ms(lambda: star_cuda.seg_scan_passes(*a), 10),
+           "plain_ms": _time_ms(
+               lambda: star_cuda.seg_scan_passes_plain(*a), 3),
+           "library_ms": _time_ms(lambda: torch.cummax(keys, 1), 3)}
+    del keys
+    bound_ms, bound_by = _bound(_nbytes(*a[:3]), _nbytes(*got),
+                                4 * BT * n * 3)
+    assert bound_by == "bytes", bound_by
+    out.update(bound_ms=bound_ms, shape=[BT, n],
+               geometry_rows=a[2].shape[0],
+               kernel="rows" if n <= star_cuda.SEG_ROW_LIMIT else "chain")
     return out
 
 
@@ -712,8 +732,8 @@ def phase_kernels(runner):
         bit_identical=True, later_launches=later,
         ms_bench_pass=per_pass, bound_ms_bench_pass=bound_pass))
 
-    # -- the genome's scoring: its four seg-scan calls against the twin
-    # and timed -----------------------------------------------------------
+    # -- the genome's scoring: its one seg-scan call against the twin and
+    # timed ---------------------------------------------------------------
     scored = []
     seg = _seg_calls(_captured(
         lambda: scored.append(_scores(runner, geo, bin_idx))))
@@ -724,11 +744,10 @@ def phase_kernels(runner):
         "pyrodigal_tpu/ops/score_device.py:347", seg_rec["shape"], 0.0,
         seg_rec["ms"], seg_rec["plain_ms"], (seg_rec["bound_ms"], "bytes"),
         library_ms=seg_rec["library_ms"],
-        library="torch.cummax(keys, 1) of the twin's int64 keys laid out "
-                "(BT * 3, n), contiguous along n, one call a scan",
-        bit_equal=True, **{k: v for k, v in seg_rec.items()
-                           if k.endswith("_calls")
-                           or k == "ms_per_scoring_launch"}))
+        library="torch.cummax(keys, 1) of the four walks' int64 keys "
+                "stacked (4 * BT * 3, n), contiguous along n, one call",
+        bit_equal=True, ms_stream=seg_rec["ms_stream"],
+        kernel=seg_rec["kernel"]))
 
     # -- star at (16, 163,840) from the genome's scores -------------------
     (ndx, stop_val, typ, strand, win_lo, valid, edge,
@@ -829,11 +848,12 @@ def phase_kernels(runner):
         f"ms, at the later mega launches " + ", ".join(
             f"{x['shape']} {x['ms']:.4f} ms (bound {x['bound_ms']:.4f})"
             for x in later) + f", {per_pass:.4f} ms a bench pass (bound "
-        f"{bound_pass:.4f}); seg_scan the mean of the genome launch's four "
-        f"calls ({', '.join(f'{x:.4f}' for x in seg_rec['ms_calls'])} ms), "
-        f"bit-equal to its twin, torch.cummax of the keys "
-        f"{seg_rec['library_ms']:.3f} ms; prefix kernels and seg_scan the "
-        f"mean of 10 calls in a CUDA graph", flush=True)
+        f"{bound_pass:.4f}); seg_scan (the {seg_rec['kernel']} kernel, "
+        f"one call a scoring launch) bit-equal to its twin and to a second "
+        f"call, stream-timed {seg_rec['ms_stream']:.4f} ms, torch.cummax "
+        f"of the four walks' keys {seg_rec['library_ms']:.3f} ms; prefix "
+        f"kernels and seg_scan the mean of 10 calls in a CUDA graph",
+        flush=True)
     return out
 
 
@@ -1009,12 +1029,14 @@ def phase_kernels_std(runner, contigs):
           f"err {star_err:.3g}, float tables bit-equal to plain: "
           f"{star_bits}, {swork['stops']} stops, candidates per stop mean "
           f"{swork['candidates_per_stop_mean']:.3f} max "
-          f"{swork['candidates_per_stop_max']}; seg_scan {seg_std['shape']}: "
-          f"kernel {seg_std['ms']:.4f} ms (calls " + ", ".join(
-              f"{x:.4f}" for x in seg_std["ms_calls"]) + f"), plain "
+          f"{swork['candidates_per_stop_max']}; seg_scan {seg_std['shape']} "
+          f"(the {seg_std['kernel']} kernel, one call a scoring launch): "
+          f"kernel {seg_std['ms']:.4f} ms, stream-timed "
+          f"{seg_std['ms_stream']:.4f} ms, plain "
           f"{seg_std['plain_ms']:.3f} ms, bound {seg_std['bound_ms']:.4f} "
-          f"ms (bytes), torch.cummax of the keys "
-          f"{seg_std['library_ms']:.3f} ms, bit-equal to its twin; kernels "
+          f"ms (bytes), torch.cummax of the four walks' keys "
+          f"{seg_std['library_ms']:.3f} ms, bit-equal to its twin and to a "
+          f"second call; kernels "
           f"the mean of 10 calls, plain phase-cumsum, star, seg_scan, "
           f"torch.cumsum and torch.cummax of 3, the plain DPs one "
           f"host-timed call", flush=True)
@@ -1290,7 +1312,7 @@ WRAPPERS = {
     "star": ("star_cuda", "star_tables", "star_tables_plain"),
     "dp_mega": ("dp_cuda", "mega_dp", "mega_dp_plain"),
     "dp_std": ("dp_cuda", "std_dp", "std_dp_plain"),
-    "seg_scan": ("star_cuda", "seg_scan", "seg_scan_plain"),
+    "seg_scan": ("star_cuda", "seg_scan_passes", "seg_scan_passes_plain"),
 }
 
 

@@ -53,10 +53,9 @@ _SIGNATURES = {
     "dp_std_launch": [_P] * 16 + [_I, _I, _P],
     # n: shared bytes of a std DP row of n nodes
     "dp_std_smem_bytes": [_I],
-    # values, elem, reset, phase, init, own, fin, scratch, BT, n,
-    # geo_stride, tiles, reset_val, reverse, exclusive, stream
-    "seg_scan_launch": [_P] * 8 + [_I] * 4 + [ctypes.c_float] + [_I] * 2
-                       + [_P],
+    # cscore, lfac, code, run2, run3, scratch, BT, n, geo_stride, tiles,
+    # reset_val, seed, stream
+    "seg_scan_launch": [_P] * 6 + [_I] * 4 + [ctypes.c_float] * 2 + [_P],
 }
 
 _lock = threading.Lock()

@@ -11,8 +11,8 @@ route's G stacked geometries (`pack_geometries`) with one work item
 (one-hot matrix-unit lookups, masked-roll window gathers, the geometry
 byte-packing for a slow link) become plain gathers; the dc prefix sums
 run in the dc-chain kernel (shared geometry) or the phase-cumsum kernel
-(per-row geometry), and the blocked associative scan of passes 2 and 3
-in the seg-scan kernel (`star_cuda.seg_scan`).
+(per-row geometry), and the blocked associative scans of passes 2 and 3
+in one launch of the seg-scan kernel (`star_cuda.seg_scan_passes`).
 
 The numpy geometry helpers are copies of the reference's: the reference
 modules import jax at the top, and this package must not.
@@ -501,20 +501,10 @@ def _score_items(tables, geo, bin_idx, gidx=None, *, is_meta, closed,
     cscore = torch.where(start, torch.where(fwd, cs1_f, cs1_r), 0.0)
     del Cf, Cr
 
-    # ---- pass 2: ascending-coding penalty (segmented running max, one
-    # channel per phase: the seg-scan kernel) ------------------------------
-    neg1e4 = torch.full((BT, 3), -1e4, dtype=F32, device=dev)
-    start_f, start_r = start & fwd, start & ~fwd
-    stop_f, stop_r = stop & fwd, stop & ~fwd
-    run2_f, _ = star_cuda.seg_scan(cscore, start_f, stop_f, phase, -1e4,
-                                   neg1e4, False, False)
-    run2_r, fin2r = star_cuda.seg_scan(cscore, start_r, stop_r, phase, -1e4,
-                                       neg1e4, True, False)
-    run2 = torch.where(fwd, run2_f, run2_r)
-    cscore = torch.where(start, 2.0 * cscore - run2, cscore)
-
-    # ---- pass 3: length factor (carries pass-2 scan state, as the
-    # reference keeps one running score[3]: lib.pyx:2119-2239) ------------
+    # ---- passes 2 and 3: ascending-coding penalty and length factor,
+    # segmented running maxima, one channel per phase; pass 3 carries
+    # pass 2's scan state, as the reference keeps one running score[3]
+    # (lib.pyx:2119-2239): one launch of the seg-scan kernel ------------
     log_ns = log_ns_t[bin_idx][:, None]
     lfmin = lfmin_t[bin_idx][:, None]
     lfmax = lfmax_t[bin_idx][:, None]
@@ -525,11 +515,9 @@ def _score_items(tables, geo, bin_idx, gidx=None, *, is_meta, closed,
         gsize > 1000.0,
         _fdiv((lfmax - lfmin) * (gsize - 80.0), 920.0),
         torch.log1p(-tmp) - gsize * log_ns - lfmin)
-    run3_f, fin3f = star_cuda.seg_scan(lfac_raw, start_f, stop_f, phase,
-                                       -1e4, fin2r, False, True)
-    run3_r, _ = star_cuda.seg_scan(lfac_raw, start_r, stop_r, phase, -1e4,
-                                   fin3f, True, True)
-    run3 = torch.where(fwd, run3_f, run3_r)
+    run2, run3 = star_cuda.seg_scan_passes(
+        cscore, lfac_raw, star_cuda.seg_code(phase, start, stop, fwd))
+    cscore = torch.where(start, 2.0 * cscore - run2, cscore)
     lfac = torch.where(
         lfac_raw > run3, lfac_raw,
         lfac_raw - torch.clamp(torch.minimum(run3 - lfac_raw, lfac_raw),

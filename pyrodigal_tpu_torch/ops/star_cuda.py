@@ -3,7 +3,8 @@ and plain twins.
 
 Port of `pyrodigal_tpu.ops.star_pallas` (`dc_phase_cumsum`,
 `phase_cumsum`, `star_tables_mega`), of the scoring passes' segmented
-running max (`score_device._seg_scan`, an XLA scan) and of the std
+running maxima (`score_device._seg_scan`, an XLA scan, four a scoring
+launch: one launch of `seg_scan_passes`) and of the std
 route's XLA star sweep (`score_device._score_items`).  Each wrapper
 launches its kernel from `csrc/dc_chain.cu`, `csrc/phase_cumsum.cu`,
 `csrc/seg_scan.cu` or `csrc/star.cu` for CUDA tensors, under the
@@ -158,10 +159,12 @@ def phase_cumsum(x):
 
 
 # --------------------------------------------------------------------------
-# the scoring passes' segmented running max (csrc/seg_scan.cu)
+# the scoring passes' segmented running maxima (csrc/seg_scan.cu)
 # --------------------------------------------------------------------------
 
-SEG_TILE = 2304       # walk positions a block of the seg-scan kernel takes
+SEG_ROW_LIMIT = 3072  # nodes a row the seg-scan takes in one block
+SEG_TILE = 4352       # walk positions a tile of its look-back over longer rows
+SEG_SEED = -1e4       # pass 2's seed (the reference's score[3] start)
 _MASK32 = 0xFFFFFFFF
 
 
@@ -201,7 +204,8 @@ def seg_scan_keys(values, elem, reset, phase, reset_val, reverse):
 
 def seg_scan_plain(values, elem, reset, phase, reset_val, init, reverse,
                    exclusive):
-    """Segmented running max along the nodes, one channel per phase.
+    """Segmented running max along the nodes, one channel per phase: one
+    walk of `seg_scan_passes_plain`.
 
     values (BT, n) f32; elem, reset (R, n) bool and phase (R, n) int in
     {0, 1, 2}, R = 1 (one geometry row for every row) or BT; init (BT, 3)
@@ -228,42 +232,77 @@ def seg_scan_plain(values, elem, reset, phase, reset_val, init, reverse,
     return own, final
 
 
-def seg_scan(values, elem, reset, phase, reset_val, init, reverse,
-             exclusive):
-    """The segmented running max of scoring passes 2 and 3
-    (`seg_scan_plain`'s arguments and results); on the card elem and
-    reset are bool, phase int32, all contiguous.  Bit-equal to the twin
+def seg_code(phase, start, stop, fwd):
+    """The seg-scan's geometry byte a node, (R, n) uint8: phase | start
+    << 2 | stop << 3 | fwd << 4, from (R, n) int phase in {0, 1, 2} and
+    bool start, stop and fwd."""
+    return (phase + 4 * start + 8 * stop + 16 * fwd).to(torch.uint8)
+
+
+def seg_scan_passes_plain(cscore, lfac_raw, code, reset_val=-1e4):
+    """Scoring passes 2 and 3 as four `seg_scan_plain` calls: forward and
+    reverse over cscore seeded with SEG_SEED (inclusive), then forward
+    over lfac_raw seeded with the reverse pass-2 walk's final channels
+    and reverse seeded with the forward pass-3 walk's (exclusive), as
+    the reference keeps one running score[3] (lib.pyx:2119-2239).  cscore,
+    lfac_raw (BT, n) f32; code (R, n) uint8 (`seg_code`), R = 1 or BT.
+    Returns (run2, run3), (BT, n) f32: each node's own channel from the
+    walk of its strand."""
+    phase = (code & 3).to(torch.int32)
+    start, stop, fwd = (((code >> s) & 1).bool() for s in (2, 3, 4))
+    seed = torch.full((cscore.shape[0], 3), SEG_SEED, dtype=torch.float32,
+                      device=cscore.device)
+    start_f, start_r = start & fwd, start & ~fwd
+    stop_f, stop_r = stop & fwd, stop & ~fwd
+    run2_f, _ = seg_scan_plain(cscore, start_f, stop_f, phase, reset_val,
+                               seed, False, False)
+    run2_r, fin2r = seg_scan_plain(cscore, start_r, stop_r, phase, reset_val,
+                                   seed, True, False)
+    run3_f, fin3f = seg_scan_plain(lfac_raw, start_f, stop_f, phase,
+                                   reset_val, fin2r, False, True)
+    run3_r, _ = seg_scan_plain(lfac_raw, start_r, stop_r, phase, reset_val,
+                               fin3f, True, True)
+    return torch.where(fwd, run2_f, run2_r), torch.where(fwd, run3_f, run3_r)
+
+
+def seg_scan_passes(cscore, lfac_raw, code, reset_val=-1e4):
+    """Scoring passes 2 and 3 in one launch of the seg-scan kernel
+    (`seg_scan_passes_plain`'s arguments and results; on the card all
+    contiguous, code uint8).  Rows of at most SEG_ROW_LIMIT nodes take a
+    block each; longer rows a decoupled look-back over tiles of SEG_TILE
+    positions, on a scratch zeroed for this call.  Bit-equal to the twin
     whatever the tiling: a max is exact."""
-    if not values.is_cuda:
-        return seg_scan_plain(values, elem, reset, phase, reset_val, init,
-                              reverse, exclusive)
-    BT, n = values.shape
-    R = elem.shape[0]
-    if R not in (1, BT) or n < 1:
-        raise ValueError(f"seg_scan: {R} geometry rows for ({BT}, {n})")
-    _check(values, torch.float32, (BT, n), "values")
-    _check(elem, torch.bool, (R, n), "elem")
-    _check(reset, torch.bool, (R, n), "reset")
-    _check(phase, torch.int32, (R, n), "phase")
-    _check(init, torch.float32, (BT, 3), "init")
-    dev = values.device
-    if any(t.device != dev for t in (elem, reset, phase, init)):
-        raise ValueError("seg_scan: operands on different devices")
-    tiles = -(-n // SEG_TILE)
+    if not cscore.is_cuda:
+        return seg_scan_passes_plain(cscore, lfac_raw, code, reset_val)
+    BT, n = cscore.shape
+    R = code.shape[0]
+    if R not in (1, BT) or n < 1 or BT > 65535:
+        raise ValueError(f"seg_scan_passes: {R} geometry rows for "
+                         f"({BT}, {n})")
+    _check(cscore, torch.float32, (BT, n), "cscore")
+    _check(lfac_raw, torch.float32, (BT, n), "lfac_raw")
+    _check(code, torch.uint8, (R, n), "code")
+    dev = cscore.device
+    if lfac_raw.device != dev or code.device != dev:
+        raise ValueError("seg_scan_passes: operands on different devices")
+    tiles = 0 if n <= SEG_ROW_LIMIT else -(-n // SEG_TILE)
     lib = _build.lib()
     with torch.cuda.device(dev):
-        own = torch.empty_like(values)
-        final = torch.empty((BT, 3), dtype=torch.float32, device=dev)
-        scratch = torch.empty((BT, tiles, 3), dtype=torch.int64, device=dev)
+        run2 = torch.empty_like(cscore)
+        run3 = torch.empty_like(cscore)
+        # tile counter, (BT, 4, tiles, 3) tile words, (BT, 2, 3) finals
+        scratch = (torch.zeros(1 + BT * 4 * tiles * 3 + BT * 6,
+                               dtype=torch.int64, device=dev)
+                   if tiles else None)
         stream = _stream(dev)
         _build.check(lib.seg_scan_launch(
-            values.data_ptr(), elem.data_ptr(), reset.data_ptr(),
-            phase.data_ptr(), init.data_ptr(), own.data_ptr(),
-            final.data_ptr(), scratch.data_ptr(), BT, n,
-            0 if R == 1 else n, tiles, float(reset_val), int(reverse),
-            int(exclusive), stream), "seg_scan")
+            cscore.data_ptr(), lfac_raw.data_ptr(), code.data_ptr(),
+            run2.data_ptr(), run3.data_ptr(),
+            0 if scratch is None else scratch.data_ptr(), BT, n,
+            0 if R == 1 else n, tiles, float(reset_val), SEG_SEED, stream),
+            "seg_scan")
     LAUNCHES.bump("seg_scan", dev, stream)
-    return own, final
+    return run2, run3
 
 
 # --------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where a meta-mode pass of the PyTorch/CUDA port spends its time.
 
-    python3 scripts/profile_torch_meta.py [--out FILE]
+    python3 scripts/profile_torch_meta.py [--out FILE] [--root DIR]
+                                          [--scoring-only]
 
 On one CUDA device, for each of two contig sets -- "bench", the four
 bench contigs (`bench.py` WORKLOAD, one replica each; the mega route),
@@ -20,10 +21,17 @@ contigs of lognormal length, plus KK037166; the std route):
 3. one warm pass under `torch.profiler` (CPU and CUDA activity): device
    time by kernel name (`key_averages()`, self device time; the TOP
    largest, and every kernel of `csrc/` apart), the total, and the
-   device's busy share of that pass.
+   device's busy share of that pass;
+4. one scoring launch (`score_device._score_items`) under
+   `torch.profiler` after a warm-up call: the genome's mega launch
+   (bench) or the short set's first std launch (short), its device
+   events counted in total and by name.
 
-Prints one line per part and set and, last, the whole record as one JSON
-line; `--out` also writes that record to a file.  Imports no jax.
+`--root DIR` profiles the package and `chip_smoke.py` of another
+checkout (unpacked with `git archive`) with this script; `--scoring-only`
+runs part 4 alone.  Prints one line per part and set and, last, the
+whole record as one JSON line; `--out` also writes that record to a
+file.  Imports no jax.
 """
 
 import argparse
@@ -163,6 +171,48 @@ def profiled_pass(finder, seqs, top):
                              and any(e in k for e in PORT_KERNELS)]}
 
 
+def scoring_launch(runner, name, seqs):
+    """Device events of one scoring launch (`_score_items`, the
+    seg-scan's wrapper calls and every elementwise op around them): the
+    genome's mega launch for "bench", the first std launch for "short"."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from pyrodigal_tpu_torch.ops import score_device as sd
+
+    if name == "bench":
+        geo, bin_idx, _g, _NT, _SB = chip_smoke._prepared(runner, seqs[0])
+        gidx, nonsd = None, runner.tables.any_nonsd
+    else:
+        work, geoms = chip_smoke._first_std_launch(
+            runner, [(None, s) for s in seqs])
+        packed, bin_idx, gidx, nonsd = runner._std_inputs(work, geoms)
+        geo = sd.to_device(packed, runner.device)
+        bin_idx = torch.from_numpy(bin_idx).to(runner.device)
+        gidx = torch.from_numpy(gidx).to(runner.device)
+
+    def score():
+        return sd._score_items(runner.tables.as_tuple(), geo, bin_idx, gidx,
+                               is_meta=True, closed=False, has_nonsd=nonsd)
+
+    score()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        score()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return {"shape": [int(bin_idx.shape[0]), int(geo["n32"].shape[2])],
+            "device_events": len(events),
+            "device_ms": sum(e.time_range.elapsed_us() for e in events) / 1e3,
+            "by_name": dict(collections.Counter(e.name[:80]
+                                               for e in events))}
+
+
 def profile_set(finder, runner, seqs):
     total_bp = sum(len(s) for s in seqs)
     walls = warm_passes(finder, seqs, PASSES)
@@ -197,6 +247,10 @@ def profile_set(finder, runner, seqs):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the JSON record here")
+    ap.add_argument("--root", default=ROOT,
+                    help="the checkout whose package is profiled")
+    ap.add_argument("--scoring-only", action="store_true",
+                    help="only count one scoring launch's device events")
     args = ap.parse_args()
 
     import torch
@@ -204,7 +258,7 @@ def main():
     if not torch.cuda.is_available():
         print("profile_torch_meta: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(args.root))
     import chip_smoke
     import pyrodigal_tpu_torch
 
@@ -218,7 +272,15 @@ def main():
         print(f"{name}:", flush=True)
         finder = pyrodigal_tpu_torch.GeneFinder(meta=True, backend="cuda")
         runner = finder._get_meta_runner()
-        record[name] = profile_set(finder, runner, seqs)
+        record[name] = ({} if args.scoring_only
+                        else profile_set(finder, runner, seqs))
+        sc = record[name]["scoring_launch"] = scoring_launch(runner, name,
+                                                              seqs)
+        print(f"  one scoring launch {sc['shape']}: {sc['device_events']} "
+              f"device events, {sc['device_ms']} ms; " + ", ".join(
+                  f"{n}x {k}" for k, n in sorted(sc["by_name"].items(),
+                                                 key=lambda x: -x[1])),
+              flush=True)
         runner.close()
 
     smi = subprocess.run(
@@ -226,6 +288,7 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     record["device"] = smi
+    record["root"] = os.path.abspath(args.root)
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported: the port must run without it")
     if args.out:
