@@ -1,0 +1,25 @@
+import os
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the port's kernels); skipped without one")
+
+
+@pytest.fixture
+def card():
+    """Skips the test without a CUDA card (decided here, never at
+    import)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
