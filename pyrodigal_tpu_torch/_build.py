@@ -20,7 +20,8 @@ import os
 import shutil
 import subprocess
 import threading
-import time
+
+from . import tracing
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -60,8 +61,9 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
-# what the last build in this process reported (chip_smoke prints it)
-BUILD_INFO = {"seconds": None, "ptxas": ""}
+# what the last build in this process reported (chip_smoke prints it; the
+# build's time is its `setup.kernels` span's)
+BUILD_INFO = {"ptxas": ""}
 
 
 def _nvcc():
@@ -91,7 +93,6 @@ def _compile():
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     tag = os.getpid()
-    t0 = time.perf_counter()
     objs, procs = [], []
     for src in _sources():
         obj = os.path.join(
@@ -119,23 +120,25 @@ def _compile():
         for obj in objs:
             if os.path.exists(obj):
                 os.remove(obj)
-        BUILD_INFO["seconds"] = time.perf_counter() - t0
 
 
 def lib():
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel library, built on first use (a `setup.kernels`
+    span, its attribute `built` True when nvcc ran)."""
     global _lib
     with _lock:
         if _lib is None:
-            if _stale():
-                _compile()
-            so = ctypes.CDLL(LIB_PATH)
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(so, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            so.kernels_error_string.argtypes = [_I]
-            so.kernels_error_string.restype = ctypes.c_char_p
+            with tracing.setup("setup.kernels") as sp:
+                sp.set(built=_stale())
+                if sp.attrs["built"]:
+                    _compile()
+                so = ctypes.CDLL(LIB_PATH)
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(so, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                so.kernels_error_string.argtypes = [_I]
+                so.kernels_error_string.restype = ctypes.c_char_p
             _lib = so
         return _lib
 

@@ -21,6 +21,8 @@ import subprocess
 
 import numpy as np
 
+from .. import tracing
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "refcore.c")
 _TOP = os.path.dirname(os.path.dirname(_DIR))
@@ -115,7 +117,8 @@ def _load():
         _build()
     return ctypes.CDLL(_LIB)
 
-_lib = _load()
+with tracing.setup("setup.native"):
+    _lib = _load()
 
 c_i8p = ctypes.POINTER(ctypes.c_int8)
 c_u8p = ctypes.POINTER(ctypes.c_uint8)

@@ -16,7 +16,7 @@ lexicographic (value, source index) maximum.
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, tracing
 from .._constants import MAX_OPP_OVLP, OPER_DIST, STOP
 
 LAUNCHES = _build.LaunchCounts("dp_mega", "dp_std")
@@ -48,10 +48,22 @@ def _fdiv(a, c):
     computes `number / tensor` as `tensor.reciprocal() * number`, and on
     CUDA `tensor / number` as a multiply by the number's reciprocal; both
     move last bits against the reference.  Dividing by a tensor on the
-    same device does not."""
+    same device does not.  (The constant's copy to a card synchronises
+    the stream: a `launch.wait` span there.)"""
     if isinstance(a, (int, float)):
-        return torch.tensor(a, dtype=torch.float32, device=c.device) / c
-    return a / torch.tensor(c, dtype=torch.float32, device=a.device)
+        with _wait_on(c.device):
+            a = torch.tensor(a, dtype=torch.float32, device=c.device)
+    else:
+        with _wait_on(a.device):
+            c = torch.tensor(c, dtype=torch.float32, device=a.device)
+    return a / c
+
+
+def _wait_on(device):
+    """A `launch.wait` span for a host sync on a card; none on the CPU,
+    where the plain versions call `_fdiv` node by node."""
+    return tracing.span("launch.wait") if device.type == "cuda" \
+        else tracing.OFF
 
 
 def _igm_same(ndx1, strand1, rsc1, usc1, ndx2, rsc2, usc2, st_wt):
@@ -366,7 +378,8 @@ def mega_geometry(ndx, stop_val, typ, strand, valid, monotonic_ndx):
     kind4 = kind4_of(typ, strand, valid)
     tile_nn = is_valid.reshape(NT // MEGA_TILE, MEGA_TILE).sum(
         1).to(torch.int32)
-    big = torch.tensor(2 ** 30, dtype=torch.int32, device=dev)
+    with tracing.span("launch.wait"):
+        big = torch.tensor(2 ** 30, dtype=torch.int32, device=dev)
     sort_key = ndx if monotonic_ndx else torch.where(is_valid, ndx, big)
     ovlo = torch.searchsorted(sort_key, stop_val - 3).to(torch.int32)
     fs_sorted = torch.sort(torch.where(kind4 == 1, ndx, big)).values
@@ -411,8 +424,9 @@ def _dp_core_mega(ndx, stop_val, win_lo, geometry, cs, rsc, usc, st_wt,
     if node_bounds is None:
         best = tscore.max(1).values
     else:
-        nb = np.asarray(node_bounds.cpu() if torch.is_tensor(node_bounds)
-                        else node_bounds)
+        with tracing.span("launch.wait"):
+            nb = np.asarray(node_bounds.cpu() if torch.is_tensor(node_bounds)
+                            else node_bounds)
         iidx = torch.arange(NT, device=dev)
         best = torch.stack([
             torch.where((iidx >= int(nb[c])) & (iidx < int(nb[c + 1])),
@@ -563,8 +577,10 @@ def std_dp(ndx, stop_val, kind4, win_lo, cs, rsc, usc, opv1, val3, t_sv,
     BT, n = cs.shape
     ext = torch.where(kind4 != 4, torch.arange(n, device=kind4.device)
                       - win_lo, 0)
-    if BT and n and int(ext.max()) > STD_SPAN:
-        raise ValueError(f"std_dp: a window reaches {int(ext.max())} nodes "
+    with tracing.span("launch.wait"):
+        reach = int(ext.max()) if BT and n else 0
+    if reach > STD_SPAN:
+        raise ValueError(f"std_dp: a window reaches {reach} nodes "
                          f"back, past {STD_SPAN}")
     if not cs.is_cuda:
         return std_dp_plain(ndx, stop_val, kind4, win_lo, cs, rsc, usc,

@@ -42,6 +42,7 @@ import threading
 
 import numpy as np
 
+from .. import tracing
 from .._constants import STOP
 from ..genes import Genes
 from ..nodes import Nodes
@@ -99,6 +100,7 @@ class CudaMetaRunner:
     # dispatch an open group as soon as it holds this many nodes
     MEGA_PACK_EAGER = 131072
 
+    @tracing.setup("setup.runner")
     def __init__(self, metagenomic_bins, *, device, closed=False,
                  min_gene=90, min_edge_gene=60, max_overlap=60, mask=False,
                  min_mask=50, is_meta=True, mesh=None):
@@ -152,21 +154,29 @@ class CudaMetaRunner:
 
     def _mega_ok(self, g):
         """Geometry constraints of the mega DP kernel's window and ring."""
+        return self._mega_refusal(g) is None
+
+    def _mega_refusal(self, g):
+        """The first constraint of the mega DP kernel that geometry `g`
+        breaks ("nodes", "star_overflow", "length", "window", "density" or
+        "ring"), or None when the kernel takes it."""
         nn = g["nn"]
-        if nn == 0 or nn > self.MEGA_NT[-1] or g["star_overflow"]:
-            return False
+        if nn == 0 or nn > self.MEGA_NT[-1]:
+            return "nodes"
+        if g["star_overflow"]:
+            return "star_overflow"
         if g["slen"] > self.MEGA_SB[-1]:
-            return False
+            return "length"
         ext = int((np.arange(nn) - g["win_lo"]).max())
         if ext > dp_cuda.MEGA_CHUNKS * dp_cuda.W_MEGA:
-            return False
+            return "window"
         # the kind-2 overlap window reads 384 lanes at the node offset of
         # stop_val[i]-3; its candidates lie within 200 bp, so bound the node
         # count of any 200-bp span (250 + up to 127 alignment lanes <= 384)
         ndx_sorted = np.sort(g["ndx"][:nn])
         if int((np.searchsorted(ndx_sorted, ndx_sorted + 200)
                 - np.arange(nn)).max()) > 250:
-            return False
+            return "density"
         # the fwd-stop ring serving fwd-start targets must cover every fwd
         # stop in any [win_lo(i), i) window
         fstop = ((g["typ"][:nn] == STOP)
@@ -175,39 +185,50 @@ class CudaMetaRunner:
         idx = np.arange(nn)
         fstart = (g["typ"][:nn] != STOP) & (g["strand"][:nn] == 1)
         in_win = np.where(fstart, cumf[idx] - cumf[g["win_lo"][:nn]], 0)
-        return int(in_win.max()) <= dp_cuda.MEGA_RING
+        return "ring" if int(in_win.max()) > dp_cuda.MEGA_RING else None
 
     def _prepare_contig(self, seq):
         """Returns (bin_ids, geoms, nodes_by_tt, route), route one of "std",
         "mega" or "c" (meta_tpu.py:169-204)."""
         cand = self._candidate_bins(seq)
         geoms, nodes_by_tt = {}, {}
-        route = "std" if seq.slen <= SEQ_BUCKET else "mega"
         for b in cand:
             tt = self.bins[b].training_info.translation_table
             if tt in geoms:
                 continue
-            nodes = Nodes()
-            nodes.extract(
-                seq, translation_table=tt, closed=self.closed,
-                min_gene=self.min_gene, min_edge_gene=self.min_edge_gene,
-            )
-            nodes.sort()
+            with tracing.span("prep.nodes", tt=tt):
+                nodes = Nodes()
+                nodes.extract(
+                    seq, translation_table=tt, closed=self.closed,
+                    min_gene=self.min_gene, min_edge_gene=self.min_edge_gene,
+                )
+                nodes.sort()
             nodes_by_tt[tt] = nodes
-            g = sd.prepare_geometry(seq, nodes, tt, self.closed,
-                                    self.max_overlap, RELK)
-            nn = g["nn"]
-            if route == "std" and (
-                    nn > NODE_BUCKET or g["star_overflow"]
-                    or (nn and int((np.arange(nn) - g["win_lo"]).max())
-                        > FIXED_CHUNKS * WINDOW)):
-                route = "mega"
-            geoms[tt] = g
-        # every geometry of a mega contig must fit the mega kernel (the
-        # route may have turned "mega" after earlier geometries were seen)
-        if route == "mega" and not all(map(self._mega_ok, geoms.values())):
-            route = "c"
+            with tracing.span("prep.geometry", tt=tt):
+                geoms[tt] = sd.prepare_geometry(seq, nodes, tt, self.closed,
+                                                self.max_overlap, RELK)
+        with tracing.span("prep.route"):
+            route, refused = self._route(seq, geoms)
+        sp = tracing.current("prep")
+        if sp:
+            sp.set(route=route, nodes={tt: g["nn"] for tt, g in geoms.items()},
+                   route_reason=(self._mega_refusal(refused)
+                                 if refused is not None else None))
         return cand, geoms, nodes_by_tt, route
+
+    def _route(self, seq, geoms):
+        """(route, the geometry `_mega_ok` refused or None): "std" when the
+        contig and each of its geometries fit the std buckets, else "mega"
+        when every geometry fits the mega kernel, else "c"."""
+        if seq.slen <= SEQ_BUCKET and not any(
+                g["nn"] > NODE_BUCKET or g["star_overflow"]
+                or (g["nn"] and int((np.arange(g["nn"]) - g["win_lo"]).max())
+                    > FIXED_CHUNKS * WINDOW)
+                for g in geoms.values()):
+            return "std", None
+        refused = next((g for g in geoms.values() if not self._mega_ok(g)),
+                       None)
+        return ("mega" if refused is None else "c"), refused
 
     # -- device side -----------------------------------------------------------
 
@@ -262,23 +283,32 @@ class CudaMetaRunner:
         and sequence axes, the bin-row union as rows.  Returns the (CP, B)
         best scores (numpy), the rows, CP and B."""
         T = dp_cuda.MEGA_TILE
-        nb, sb = (sum(r) for r in zip(*(self._mega_regions(it["g"])
-                                        for it in items)))
-        NT = next(b for b in self.MEGA_NT if b >= nb)
-        SB = next(b for b in self.MEGA_SB if b >= sb)
-        CP = next(c for c in self.MEGA_CP if c >= len(items))
-        rows = sorted({b for it in items for b in it["rows"]})
-        B = next(b for b in self.MEGA_ROWB if b >= len(rows))
-        D = self.mesh.size
-        B = -(-B // D) * D              # row shards must split evenly
-        packed = sd.pack_geometries_multi([it["g"] for it in items],
-                                          NT, SB, CP, T)
-        bin_idx = np.full(B, rows[0], np.int64)
-        bin_idx[:len(rows)] = rows
-        nonsd = bool((self.tables.uses_sd_np[rows] == 0).any())
-        fxs = dp_cuda.FXS \
-            if max(it["g"]["slen"] for it in items) <= self.MEGA_FXS_LIMIT \
-            else dp_cuda.FXS // 2
+        with tracing.span("launch.pack"):
+            nb, sb = (sum(r) for r in zip(*(self._mega_regions(it["g"])
+                                            for it in items)))
+            NT = next(b for b in self.MEGA_NT if b >= nb)
+            SB = next(b for b in self.MEGA_SB if b >= sb)
+            CP = next(c for c in self.MEGA_CP if c >= len(items))
+            rows = sorted({b for it in items for b in it["rows"]})
+            B = next(b for b in self.MEGA_ROWB if b >= len(rows))
+            D = self.mesh.size
+            B = -(-B // D) * D              # row shards must split evenly
+            packed = sd.pack_geometries_multi([it["g"] for it in items],
+                                              NT, SB, CP, T)
+            bin_idx = np.full(B, rows[0], np.int64)
+            bin_idx[:len(rows)] = rows
+            nonsd = bool((self.tables.uses_sd_np[rows] == 0).any())
+            fxs = dp_cuda.FXS \
+                if max(it["g"]["slen"] for it in items) \
+                <= self.MEGA_FXS_LIMIT else dp_cuda.FXS // 2
+        sp = tracing.current("launch")
+        if sp:
+            nodes = [it["g"]["nn"] for it in items]
+            sp.set(route="mega", items=len(items), rows=len(rows),
+                   rows_bucket=B, nodes=sum(nodes), nodes_bucket=NT,
+                   node_rows=sum(n * len(it["rows"])
+                                 for n, it in zip(nodes, items)),
+                   node_rows_bucket=NT * B)
         best = sharded_score_dp_launch_mega(
             self.mesh, self.shard_tables, packed, bin_idx,
             is_meta=self.is_meta, closed=self.closed, has_nonsd=nonsd,
@@ -334,7 +364,16 @@ class CudaMetaRunner:
     def _sweep_std(self, work, geoms):
         """One std launch; returns the (BT,) best scores (numpy), row k
         for work item k."""
-        packed, bin_idx, gidx, nonsd = self._std_inputs(work, geoms)
+        with tracing.span("launch.pack"):
+            packed, bin_idx, gidx, nonsd = self._std_inputs(work, geoms)
+        sp = tracing.current("launch")
+        if sp:
+            sp.set(route="std", items=len(work), rows=len(work),
+                   rows_bucket=len(bin_idx),
+                   nodes=sum(g["nn"] for g in geoms.values()),
+                   nodes_bucket=len(geoms) * NODE_BUCKET,
+                   node_rows=sum(geoms[key]["nn"] for _ci, _b, key in work),
+                   node_rows_bucket=len(bin_idx) * NODE_BUCKET)
         return sharded_score_dp_launch(
             self.mesh, self.shard_tables, packed, bin_idx, gidx,
             is_meta=self.is_meta, closed=self.closed, has_nonsd=nonsd,
@@ -382,6 +421,9 @@ class CudaMetaRunner:
             max_overlap=self.max_overlap, backend="refcore",
         )
         gf._num_seq = num_seq
+        sp = tracing.current("exact_route")
+        if sp:
+            sp.set(bins=len(self._candidate_bins(seq)))
         return gf.find_genes(str(seq))
 
     # bins whose device (f32) path score lies within this margin of the
@@ -398,9 +440,13 @@ class CudaMetaRunner:
         genes._num_seq = num_seq
         genes.meta = False
         genes.sequence = seq
-        nodes = self._score_winner(seq, nodes_by_tt, 0)
-        ipath = nodes.dynamic_programming(self.bins[0].training_info,
-                                          final=True)
+        with tracing.span("finish.rerun", bin=0):
+            nodes = self._score_winner(seq, nodes_by_tt, 0)
+            ipath = nodes.dynamic_programming(self.bins[0].training_info,
+                                              final=True)
+        sp = tracing.current("finish")
+        if sp:
+            sp.set(bins=1, winner=0)
         exact = float(nodes.score[ipath]) \
             if nodes.length > 0 and ipath >= 0 else None
         return self._finish(genes, seq, 0, nodes, ipath, None), exact
@@ -433,13 +479,18 @@ class CudaMetaRunner:
         chosen = None
         for b in close:
             tinf = self.bins[b].training_info
-            nodes = self._score_winner(seq, nodes_by_tt, b)
-            out_nodes = nodes.copy()
-            ipath = nodes.dynamic_programming(tinf, final=True)
+            with tracing.span("finish.rerun", bin=b):
+                nodes = self._score_winner(seq, nodes_by_tt, b)
+                out_nodes = nodes.copy()
+                ipath = nodes.dynamic_programming(tinf, final=True)
             if nodes.length > 0 and ipath >= 0 \
                     and nodes.score[ipath] > max_score:
                 max_score = nodes.score[ipath]
                 chosen = (b, nodes, ipath, out_nodes)
+        sp = tracing.current("finish")
+        if sp:
+            sp.set(bins=len(close),
+                   winner=chosen[0] if chosen is not None else None)
         if chosen is None:
             return self._produce_empty(seq, num_seq)
         return self._finish(genes, seq, *chosen)
@@ -457,11 +508,20 @@ class CudaMetaRunner:
     # -- batch entry point ---------------------------------------------------
 
     def find_genes_batch(self, sequences, num_seq_start=1):
+        with tracing.span(tracing.CALL):
+            return self._find_genes_batch(sequences, num_seq_start)
+
+    def _find_genes_batch(self, sequences, num_seq_start):
         contigs, preps = [], []
-        for s in sequences:
+        for ci, s in enumerate(sequences):
             seq = Sequence(s, mask=self.mask, mask_size=self.min_mask)
             contigs.append(seq)
-            preps.append(self.pool.submit(self._prepare_contig, seq))
+            preps.append(self.pool.submit(
+                tracing.carry(self._prepare_contig, "prep", contig=ci,
+                              bp=seq.slen), seq))
+        sp = tracing.current(tracing.CALL)
+        if sp:
+            sp.set(contigs=len(contigs), bp=sum(s.slen for s in contigs))
 
         futures = {}
         groups = []              # dispatched mega launches, FIFO
@@ -471,8 +531,8 @@ class CudaMetaRunner:
         nodes_maps = {}
 
         def dispatch(gr):
-            gr["fut"] = self.launcher.submit(self._sweep_mega_multi,
-                                             gr["items"])
+            gr["fut"] = self.launcher.submit(
+                tracing.carry(self._sweep_mega_multi, "launch"), gr["items"])
             groups.append(gr)
 
         for ci, fut in enumerate(preps):
@@ -481,7 +541,9 @@ class CudaMetaRunner:
                 self.route_counts[route] += 1
             if route == "c":
                 futures[ci] = self.pool.submit(
-                    self._produce_fallback, contigs[ci], num_seq_start + ci)
+                    tracing.carry(self._produce_fallback, "exact_route",
+                                  contig=ci, bp=contigs[ci].slen),
+                    contigs[ci], num_seq_start + ci)
                 continue
             if not cand:
                 futures[ci] = self.pool.submit(
@@ -490,8 +552,8 @@ class CudaMetaRunner:
             if not self.is_meta:
                 # single mode finishes now; the launch runs beside it
                 futures[ci] = self.pool.submit(
-                    self._produce_single, contigs[ci], num_seq_start + ci,
-                    nodes_by_tt)
+                    tracing.carry(self._produce_single, "finish", contig=ci),
+                    contigs[ci], num_seq_start + ci, nodes_by_tt)
             nodes_maps[ci] = nodes_by_tt
             if route == "std":
                 std_items.append((ci, cand, geoms))
@@ -511,8 +573,9 @@ class CudaMetaRunner:
         # std launches run on the launcher after the mega launches
         std_launches = self._pack_std(std_items)
         for L in std_launches:
-            L["fut"] = self.launcher.submit(self._sweep_std, L["work"],
-                                            L["geoms"])
+            L["fut"] = self.launcher.submit(
+                tracing.carry(self._sweep_std, "launch"), L["work"],
+                L["geoms"])
 
         device_best = {}
 
@@ -525,8 +588,8 @@ class CudaMetaRunner:
                     self._produce_empty, contigs[ci], num_seq_start + ci)
             else:
                 futures[ci] = self.pool.submit(
-                    self._produce_winner, contigs[ci], num_seq_start + ci,
-                    cands, nodes_maps[ci])
+                    tracing.carry(self._produce_winner, "finish", contig=ci),
+                    contigs[ci], num_seq_start + ci, cands, nodes_maps[ci])
 
         # pull launches in dispatch order, mega first; in meta mode each
         # contig goes to the exact-C winner finishing when its last item

@@ -26,7 +26,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .. import _native
+from .. import _native, tracing
 from .._constants import MAX_NODE_DIST, STOP
 from . import dp_cuda, star_cuda
 from .dp_cuda import _fdiv
@@ -303,9 +303,11 @@ def pack_geometries_multi(geoms, NT, SB, CP, tile):
 
 
 def to_device(packed, device):
-    """A packed geometry dict (numpy) as torch tensors on `device`."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in packed.items()}
+    """A packed geometry dict (numpy) as torch tensors on `device` (copies
+    from pageable memory: a CUDA stream synchronisation each)."""
+    with tracing.span("launch.wait"):
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                for k, v in packed.items()}
 
 
 # --------------------------------------------------------------------------
@@ -336,7 +338,9 @@ def _derive_m6(geo):
     if "blo" in geo:
         # packed geometry: zero m6r outside every contig's [blo, bhi)
         inc = torch.zeros(S, dtype=torch.bool, device=d.device)
-        for lo, hi in zip(geo["blo"].tolist(), geo["bhi"].tolist()):
+        with tracing.span("launch.wait"):
+            bounds = list(zip(geo["blo"].tolist(), geo["bhi"].tolist()))
+        for lo, hi in bounds:
             inc[lo:hi] = True
         m6r = torch.where(inc, m6r, 0)
     else:
@@ -409,8 +413,9 @@ def _derive_candidates(geo, m6f, m6r, has_nonsd):
     code = torch.where(fwd, Wf[..., 28:43], Wr[..., 5:20].flip(-1))
 
     # upstream-composition mers: slots 0-1 = -1,-2; 2-31 = -15..-44
-    ks = torch.tensor([1, 2] + list(range(15, 45)), dtype=torch.int32,
-                      device=dev)
+    with tracing.span("launch.wait"):
+        ks = torch.tensor([1, 2] + list(range(15, 45)), dtype=torch.int32,
+                          device=dev)
     start_coord = torch.where(fwd, loc, lsl - 1 - loc)
     uok = (ks <= start_coord) & is_start
     umer_f = torch.cat([Wf[..., 46:48].flip(-1), Wf[..., 4:34].flip(-1)], -1)
@@ -421,7 +426,9 @@ def _derive_candidates(geo, m6f, m6r, has_nonsd):
 
     mot = None
     if has_nonsd:
-        o = torch.from_numpy(_MOT_O).to(dev)
+        with tracing.span("launch.wait"):
+            o, mot_len, mot_sp = (torch.from_numpy(a).to(dev)
+                                  for a in (_MOT_O, _MOT_LEN, _MOT_SP))
         mok = (start_coord + o >= 0) & is_start & not_edge
         mers = []
         for i in range(3, -1, -1):
@@ -431,8 +438,7 @@ def _derive_candidates(geo, m6f, m6r, has_nonsd):
         mmer = torch.cat(mers, -1)
         mot = torch.where(
             mok,
-            torch.from_numpy(_MOT_LEN).to(dev) * 16384
-            + torch.from_numpy(_MOT_SP).to(dev) * 4096 + mmer,
+            mot_len * 16384 + mot_sp * 4096 + mmer,
             -1)
     return code, ok, ups_flat, uok, mot
 

@@ -18,6 +18,8 @@ import threading
 
 import torch
 
+from .. import tracing
+
 
 def canonical(device):
     """`device` as a torch.device, a CUDA device without an index being
@@ -72,12 +74,14 @@ class Mesh:
             with torch.cuda.device(dev), torch.cuda.stream(stream):
                 stream.wait_stream(torch.cuda.default_stream(dev))
                 out = fn(k, dev)
-            stream.synchronize()
+            with tracing.span("launch.wait"):
+                stream.synchronize()
             return out
 
         if self._pool is None:
             return [shard(0)]
-        return list(self._pool.map(shard, range(self.size)))
+        return list(self._pool.map(tracing.carry(shard, "launch.shard"),
+                                   range(self.size)))
 
 
 def make_mesh(n_devices=None, *, devices=None):

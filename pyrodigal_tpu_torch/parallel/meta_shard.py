@@ -20,6 +20,7 @@ outermost parallelism is a thread pool over contigs, cli.py:286-302.)
 import numpy as np
 import torch
 
+from .. import tracing
 from ..ops import score_device as sd
 
 
@@ -44,13 +45,15 @@ def sharded_score_dp_launch(mesh, tables_per_device, geo, bin_idx, gidx, *,
     slices = _row_slices(mesh, len(bin_idx))
 
     def shard(k, dev):
+        with tracing.span("launch.wait"):
+            rows = (torch.from_numpy(bin_idx[slices[k]]).to(dev),
+                    torch.from_numpy(gidx[slices[k]]).to(dev))
         best = sd.score_dp_launch(
-            tables_per_device[k].as_tuple(), sd.to_device(geo, dev),
-            torch.from_numpy(bin_idx[slices[k]]).to(dev),
-            torch.from_numpy(gidx[slices[k]]).to(dev), is_meta=is_meta,
-            closed=closed, has_nonsd=has_nonsd, relk=relk,
+            tables_per_device[k].as_tuple(), sd.to_device(geo, dev), *rows,
+            is_meta=is_meta, closed=closed, has_nonsd=has_nonsd, relk=relk,
             max_overlap=max_overlap)
-        return best.cpu().numpy()
+        with tracing.span("launch.wait"):
+            return best.cpu().numpy()
 
     return np.concatenate(mesh.run(shard))
 
@@ -69,11 +72,13 @@ def sharded_score_dp_launch_mega(mesh, tables_per_device, geo, bin_idx, *,
     slices = _row_slices(mesh, len(bin_idx))
 
     def shard(k, dev):
+        with tracing.span("launch.wait"):
+            rows = torch.from_numpy(bin_idx[slices[k]]).to(dev)
         best = sd.score_dp_launch_mega(
-            tables_per_device[k].as_tuple(), sd.to_device(geo, dev),
-            torch.from_numpy(bin_idx[slices[k]]).to(dev), is_meta=is_meta,
-            closed=closed, has_nonsd=has_nonsd, relk=relk,
+            tables_per_device[k].as_tuple(), sd.to_device(geo, dev), rows,
+            is_meta=is_meta, closed=closed, has_nonsd=has_nonsd, relk=relk,
             max_overlap=max_overlap, fxs=fxs)
-        return best.cpu().numpy()
+        with tracing.span("launch.wait"):
+            return best.cpu().numpy()
 
     return np.concatenate(mesh.run(shard), axis=-1)
