@@ -32,7 +32,7 @@ from .sequence import Sequence
 from .nodes import Nodes
 from .genes import Genes
 from .training import TrainingInfo
-from . import _native, tracing
+from . import _native
 
 
 class _SingleBin:
@@ -270,23 +270,19 @@ class GeneFinder:
     def _find_genes_single(self, seq, tinf, nodes, genes):
         """(reference: lib.pyx:5281-5315), on the exact C engine; on
         ``backend="cuda"`` `find_genes` sends single mode to the runner
-        before it reaches here (the runner's exact route comes here too,
-        one `exact_route.bin` span)."""
-        with tracing.span("exact_route.bin", bin=0):
-            self._extract_sorted(nodes, seq, tinf.translation_table)
-            nodes.reset_scores()
-            nodes.score_nodes(seq, tinf, closed=self.closed, is_meta=False)
-            nodes.record_overlapping_starts(tinf, 1, self.max_overlap)
-            ipath = nodes.dynamic_programming(tinf, final=True)
+        before it reaches here."""
+        self._extract_sorted(nodes, seq, tinf.translation_table)
+        nodes.reset_scores()
+        nodes.score_nodes(seq, tinf, closed=self.closed, is_meta=False)
+        nodes.record_overlapping_starts(tinf, 1, self.max_overlap)
+        ipath = nodes.dynamic_programming(tinf, final=True)
         if nodes.length > 0:
             nodes.eliminate_bad_genes(ipath, tinf)
         genes._extract(nodes, ipath)
         genes._tweak_final_starts(nodes, tinf, self.max_overlap)
 
     def _find_genes_meta(self, seq, nodes, genes):
-        """(reference: lib.pyx:5317-5396), on the exact C engine; the
-        runner's exact route comes here, an `exact_route.bin` span a bin
-        swept."""
+        """(reference: lib.pyx:5317-5396), on the exact C engine."""
         low = min(0.65, 0.88495 * seq.gc - 0.0102337)
         high = max(0.35, 0.86596 * seq.gc + 0.1131991)
 
@@ -299,23 +295,21 @@ class GeneFinder:
             tinf = bin_.training_info
             if tinf.gc < low or tinf.gc > high:
                 continue
-            with tracing.span("exact_route.bin", bin=i):
-                if tinf.translation_table != tt:
-                    tt = tinf.translation_table
-                    nodes.clear()
-                    self._extract_sorted(nodes, seq, tt)
-                nodes.reset_scores()
-                nodes.score_nodes(seq, tinf, closed=self.closed, is_meta=True)
-                nodes.record_overlapping_starts(tinf, 1, self.max_overlap)
-                ipath = nodes.dynamic_programming(tinf, final=True)
-                if nodes.length > 0 and ipath >= 0 \
-                        and nodes.score[ipath] > max_score:
-                    max_phase = i
-                    max_score = nodes.score[ipath]
-                    nodes.eliminate_bad_genes(ipath, tinf)
-                    genes._clear()
-                    genes._extract(nodes, ipath)
-                    genes._tweak_final_starts(nodes, tinf, self.max_overlap)
+            if tinf.translation_table != tt:
+                tt = tinf.translation_table
+                nodes.clear()
+                self._extract_sorted(nodes, seq, tt)
+            nodes.reset_scores()
+            nodes.score_nodes(seq, tinf, closed=self.closed, is_meta=True)
+            nodes.record_overlapping_starts(tinf, 1, self.max_overlap)
+            ipath = nodes.dynamic_programming(tinf, final=True)
+            if nodes.length > 0 and ipath >= 0 and nodes.score[ipath] > max_score:
+                max_phase = i
+                max_score = nodes.score[ipath]
+                nodes.eliminate_bad_genes(ipath, tinf)
+                genes._clear()
+                genes._extract(nodes, ipath)
+                genes._tweak_final_starts(nodes, tinf, self.max_overlap)
 
         if max_phase >= 0:
             tinf = self.metagenomic_bins[max_phase].training_info

@@ -13,7 +13,8 @@ route as the JAX package does:
   candidate bins (`score_device.score_dp_launch_mega`: scoring, the
   dc-chain, star and mega-DP kernels);
 * "c": mega geometries `_mega_ok` refuses; the exact C engine takes the
-  whole contig.
+  whole contig, from the nodes prep extracted, its candidate bins side
+  by side on a second pool (`_produce_fallback`).
 
 Each launch returns one best path score per (contig, bin); the exact C
 engine then re-runs the winning bin(s) of each contig, so the emitted
@@ -125,6 +126,9 @@ class CudaMetaRunner:
                     dev)
         self.shard_tables = [replicas[dev] for dev in self.mesh.devices]
         self.pool = concurrent.futures.ThreadPoolExecutor(PREP_THREADS)
+        # the exact route's bins: tasks that never wait, so a `pool` thread
+        # waiting on them cannot starve either pool
+        self.bin_pool = concurrent.futures.ThreadPoolExecutor(PREP_THREADS)
         # device launches run in submission order on one thread
         self.launcher = concurrent.futures.ThreadPoolExecutor(1)
         self.route_counts = {"std": 0, "mega": 0, "c": 0}
@@ -138,6 +142,7 @@ class CudaMetaRunner:
 
     def close(self):
         self.pool.shutdown()
+        self.bin_pool.shutdown()
         self.launcher.shutdown()
 
     # -- host side -----------------------------------------------------------
@@ -381,7 +386,15 @@ class CudaMetaRunner:
 
     # -- finishing (host, exact C on the winning bin) -------------------------
 
-    def _finish(self, genes, seq, bin_id, nodes, ipath, out_nodes):
+    def _genes(self, seq, num_seq):
+        genes = Genes()
+        genes._num_seq = num_seq
+        genes.meta = self.is_meta
+        genes.sequence = seq
+        return genes
+
+    def _finish(self, seq, num_seq, bin_id, nodes, ipath, out_nodes):
+        genes = self._genes(seq, num_seq)
         tinf = self.bins[bin_id].training_info
         if nodes.length > 0:
             nodes.eliminate_bad_genes(ipath, tinf)
@@ -406,25 +419,51 @@ class CudaMetaRunner:
         nodes.record_overlapping_starts(tinf, 1, self.max_overlap)
         return nodes
 
-    def _produce_fallback(self, seq, num_seq):
-        """A contig the mega kernel cannot take: the sequential exact-C
-        path, in the runner's mode."""
-        from ..gene_finder import GeneFinder
-        if self.is_meta:
-            model = dict(meta=True, metagenomic_bins=self.bins)
-        else:
-            model = dict(training_info=self.bins[0].training_info)
-        gf = GeneFinder(
-            **model, closed=self.closed, mask=self.mask,
-            min_mask=self.min_mask, min_gene=self.min_gene,
-            min_edge_gene=self.min_edge_gene,
-            max_overlap=self.max_overlap, backend="refcore",
-        )
-        gf._num_seq = num_seq
+    def _run_bin(self, seq, nodes_by_tt, bin_id):
+        """One bin on the exact engine, from a copy of prep's nodes:
+        (bin_id, nodes after the final DP, its path end, the pre-DP
+        snapshot that meta mode writes, or None in single mode)."""
+        nodes = self._score_winner(seq, nodes_by_tt, bin_id)
+        out_nodes = nodes.copy() if self.is_meta else None
+        ipath = nodes.dynamic_programming(self.bins[bin_id].training_info,
+                                          final=True)
+        return bin_id, nodes, ipath, out_nodes
+
+    @staticmethod
+    def _choose(runs):
+        """The reference's choice among `_run_bin` results in ascending bin
+        order: the highest path score above -100, the earliest bin on a
+        tie (a strict `>`, lib.pyx:5339-5374); None when no bin has a
+        path.  Only the best so far is kept alive."""
+        chosen, max_score = None, -100.0
+        for run in runs:
+            _b, nodes, ipath, _out = run
+            if nodes.length > 0 and ipath >= 0 \
+                    and nodes.score[ipath] > max_score:
+                chosen, max_score = run, nodes.score[ipath]
+        return chosen
+
+    def _produce_fallback(self, seq, num_seq, cand, nodes_by_tt):
+        """A contig the mega kernel cannot take: every candidate bin on the
+        exact engine, from prep's nodes.  In meta mode the bins run side
+        by side on `bin_pool` and the winner is the one the reference's
+        sequential sweep picks; single mode's one bin runs here."""
         sp = tracing.current("exact_route")
         if sp:
-            sp.set(bins=len(self._candidate_bins(seq)))
-        return gf.find_genes(str(seq))
+            sp.set(bins=len(cand), workers=PREP_THREADS)
+        if not self.is_meta:
+            with tracing.span("exact_route.bin", bin=0):
+                run = self._run_bin(seq, nodes_by_tt, 0)
+            return self._finish(seq, num_seq, *run)
+        futs = [self.bin_pool.submit(
+            tracing.carry(self._run_bin, "exact_route.bin", bin=b),
+            seq, nodes_by_tt, b) for b in cand]
+        # each result is let go once weighed: a bin holds two copies of
+        # the nodes, 19 MB each for a 2.46 Mbp genome
+        chosen = self._choose(futs.pop(0).result() for _ in cand)
+        if chosen is None:
+            return self._produce_empty(seq, num_seq)
+        return self._finish(seq, num_seq, *chosen)
 
     # bins whose device (f32) path score lies within this margin of the
     # winner are re-run on the exact engine too
@@ -436,20 +475,15 @@ class CudaMetaRunner:
         """Single mode's finishing: the exact engine re-runs the one bin
         and finishes whatever the path (lib.pyx:5281-5315).  Returns
         (genes, the exact best path score, or None with no path)."""
-        genes = Genes()
-        genes._num_seq = num_seq
-        genes.meta = False
-        genes.sequence = seq
         with tracing.span("finish.rerun", bin=0):
-            nodes = self._score_winner(seq, nodes_by_tt, 0)
-            ipath = nodes.dynamic_programming(self.bins[0].training_info,
-                                              final=True)
+            run = self._run_bin(seq, nodes_by_tt, 0)
         sp = tracing.current("finish")
         if sp:
             sp.set(bins=1, winner=0)
+        _b, nodes, ipath, _out = run
         exact = float(nodes.score[ipath]) \
             if nodes.length > 0 and ipath >= 0 else None
-        return self._finish(genes, seq, 0, nodes, ipath, None), exact
+        return self._finish(seq, num_seq, *run), exact
 
     def _record_drift(self, device, exact):
         if exact is None:
@@ -466,43 +500,27 @@ class CudaMetaRunner:
         """Exact finishing for one contig in meta mode.  `cands`:
         [(bin_id, device_score)].  The winning bin, and every bin within
         the f32 drift margin of it, is re-run through the exact f64 C
-        engine, in ascending bin order with the reference's `>`
-        (lib.pyx:5339-5374)."""
-        genes = Genes()
-        genes._num_seq = num_seq
-        genes.meta = self.is_meta
-        genes.sequence = seq
+        engine, one after another on this thread, and chosen as the
+        reference chooses (`_choose`)."""
         best_dev = max(s for _b, s in cands)
         close = sorted(b for b, s in cands
                        if s >= best_dev - self._margin(best_dev))
-        max_score = -100.0
-        chosen = None
-        for b in close:
-            tinf = self.bins[b].training_info
+
+        def rerun(b):
             with tracing.span("finish.rerun", bin=b):
-                nodes = self._score_winner(seq, nodes_by_tt, b)
-                out_nodes = nodes.copy()
-                ipath = nodes.dynamic_programming(tinf, final=True)
-            if nodes.length > 0 and ipath >= 0 \
-                    and nodes.score[ipath] > max_score:
-                max_score = nodes.score[ipath]
-                chosen = (b, nodes, ipath, out_nodes)
+                return self._run_bin(seq, nodes_by_tt, b)
+        chosen = self._choose(map(rerun, close))
         sp = tracing.current("finish")
         if sp:
             sp.set(bins=len(close),
                    winner=chosen[0] if chosen is not None else None)
         if chosen is None:
             return self._produce_empty(seq, num_seq)
-        return self._finish(genes, seq, *chosen)
+        return self._finish(seq, num_seq, *chosen)
 
     def _produce_empty(self, seq, num_seq):
-        genes = Genes()
-        genes._num_seq = num_seq
-        genes.meta = self.is_meta
-        genes.sequence = seq
+        genes = self._genes(seq, num_seq)
         genes.nodes = Nodes()
-        genes.metagenomic_bin = None
-        genes.training_info = None
         return genes
 
     # -- batch entry point ---------------------------------------------------
@@ -543,7 +561,7 @@ class CudaMetaRunner:
                 futures[ci] = self.pool.submit(
                     tracing.carry(self._produce_fallback, "exact_route",
                                   contig=ci, bp=contigs[ci].slen),
-                    contigs[ci], num_seq_start + ci)
+                    contigs[ci], num_seq_start + ci, cand, nodes_by_tt)
                 continue
             if not cand:
                 futures[ci] = self.pool.submit(

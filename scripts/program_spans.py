@@ -15,7 +15,7 @@ line, then one JSON line of what the run held:
   device's idle time split by the program span open in it
   (`genebench.progspans.attribute_idle`); the stretch's wall time split
   the same way; and the window's wall per Mbp against the benchmark's
-  spans per Mbp;
+  spans per Mbp; each call's bp, wall seconds and routes;
 * with `--tracing on`, the program's tracing is on for the whole run
   (`pyrodigal_tpu_torch.tracing.enable()`), so that a `--trace 0` run
   gives its cost against a run without it on the same seed.
@@ -79,7 +79,10 @@ def report(run):
                     "wall_s": c1 - c0,
                     "routes": [[s.attrs.get("bp"), s.attrs.get("route"),
                                 s.attrs.get("route_reason")]
-                               for s in st.named("prep")]},
+                               for s in st.named("prep")],
+                    "call_s": [[c.attrs["bp"], c.seconds,
+                                [s.attrs.get("route") for s in st.named("prep")
+                                 if s.call == c.id]] for c in st.calls]},
         "pairs_thread_s": pairs,
         "idle_s": dict(sorted(idle.items(), key=lambda kv: -kv[1])),
         "wall_s": wall_split(st, int(c0 * 1e9), int(c1 * 1e9)),

@@ -5,6 +5,9 @@ JAX package's runner tests in tests/test_meta.py, on the std route and
 route; and its per-(contig, bin) best path scores against the JAX
 package's std and mega launches."""
 
+import io
+import threading
+
 import numpy as np
 import pytest
 
@@ -13,7 +16,7 @@ torch = pytest.importorskip("torch")
 from pyrodigal_tpu import GeneFinder, MetagenomicBins, METAGENOMIC_BINS  # noqa: E402,E501
 from pyrodigal_tpu.fasta import parse  # noqa: E402
 from pyrodigal_tpu.sequence import Sequence  # noqa: E402
-from pyrodigal_tpu_torch.ops import meta_cuda  # noqa: E402
+from pyrodigal_tpu_torch.ops import dp_cuda, meta_cuda  # noqa: E402
 from pyrodigal_tpu_torch.ops.meta_cuda import CudaMetaRunner  # noqa: E402
 
 needs_bins = pytest.mark.skipif(
@@ -48,6 +51,15 @@ def _assert_same_genes(a, b):
     assert [(g.begin, g.end, g.strand) for g in b] == \
         [(g.begin, g.end, g.strand) for g in a]
     assert all(x._gene_data(1) == y._gene_data(1) for x, y in zip(a, b))
+
+
+class _Clone:
+    """A bin whose model is another's, under another name."""
+
+    description = "clone-of-winner"
+
+    def __init__(self, ti):
+        self.training_info = ti
 
 
 def _packed_contigs(data):
@@ -128,19 +140,108 @@ def test_bin_near_tie_exact_arbitration(data):
     seq = list(parse(data("SRR492066.fna.gz")))[0].seq[:20000]
     full = GeneFinder(meta=True, backend="refcore").find_genes(seq)
     chosen = full.metagenomic_bin
-
-    class _Clone:
-        description = "clone-of-winner"
-
-        def __init__(self, ti):
-            self.training_info = ti
-
     bins = MetagenomicBins((chosen, _Clone(chosen.training_info)))
     runner = _runner(bins)
     b = runner.find_genes_batch([seq])[0]
     assert runner.route_counts["std"] == 1
     assert b.metagenomic_bin.description == chosen.description
     _assert_same_genes(full, b)
+
+
+@pytest.fixture
+def exact_only(monkeypatch, mega_only):
+    """Send every contig longer than 2,048 bp down the exact route ("c"):
+    no node's window fits a mega kernel without chunks."""
+    monkeypatch.setattr(dp_cuda, "MEGA_CHUNKS", 0)
+
+
+def _writer_bytes(genes):
+    """GFF, nucleotide FASTA and protein FASTA."""
+    out = []
+    for write in (genes.write_gff, genes.write_genes,
+                  genes.write_translations):
+        f = io.StringIO()
+        write(f, "contig")
+        out.append(f.getvalue())
+    return out
+
+
+def _assert_same_bytes(expected, got):
+    assert len(expected) == len(got)
+    for a, b in zip(expected, got):
+        assert (b.metagenomic_bin and b.metagenomic_bin.description) == \
+            (a.metagenomic_bin and a.metagenomic_bin.description)
+        assert _writer_bytes(b) == _writer_bytes(a)
+
+
+@needs_bins
+@pytest.mark.parametrize("case", ["gc_levels", "closed", "mask",
+                                  "two_tables", "tie", "no_path"])
+def test_exact_route_matches_c_path(data, case, exact_only):
+    """Route "c": each contig's candidate bins run side by side on the
+    exact engine, from the nodes prep extracted, and the winner is the one
+    the sequential sweep picks: the same bytes and bin as refcore's, for
+    contigs of three GC levels in one call, closed ends, a masked N run,
+    bins of two translation tables, two bins with one model (the earlier
+    wins) and a contig with no node (no genes)."""
+    srr = list(parse(data("SRR492066.fna.gz")))[0].seq
+    seqs, kw, bins = [srr[:24000]], {}, METAGENOMIC_BINS
+    if case == "gc_levels":
+        seqs = [srr[:12000],
+                list(parse(data("MIIJ01000039.fna.gz")))[0].seq[:24000],
+                list(parse(data("KK037166.fna.gz")))[0].seq]
+    elif case == "closed":
+        kw = dict(closed=True)
+    elif case == "mask":
+        seqs, kw = [srr[:9000] + "N" * 120 + srr[9000:24000]], dict(mask=True)
+    elif case == "two_tables":
+        seqs = [srr[30000:54000]]
+        assert len({bins[b].training_info.translation_table for b in
+                    _runner()._candidate_bins(Sequence(seqs[0]))}) == 2
+    elif case == "tie":
+        chosen = GeneFinder(meta=True, backend="refcore").find_genes(
+            seqs[0]).metagenomic_bin
+        bins = MetagenomicBins((chosen, _Clone(chosen.training_info)))
+    elif case == "no_path":
+        seqs = ["TTAATTAGTGA" * 300]
+    finder = GeneFinder(meta=True, metagenomic_bins=bins, backend="refcore",
+                        **kw)
+    expected = [finder.find_genes(s) for s in seqs]
+    runner = _runner(bins, **kw)
+    got = runner.find_genes_batch(seqs)
+    runner.close()
+    assert runner.route_counts == {"std": 0, "mega": 0, "c": len(seqs)}
+    _assert_same_bytes(expected, got)
+    if case == "tie":
+        assert got[0].metagenomic_bin is chosen
+    if case == "no_path":
+        assert len(got[0]) == 0 and got[0].metagenomic_bin is None
+    else:
+        assert all(len(g) > 0 for g in got)
+
+
+@needs_bins
+def test_exact_route_many_contigs_in_one_call(data, exact_only):
+    """More route-"c" contigs in one call than the pool has threads: each
+    pool thread that sweeps a contig waits on its bins, which run on the
+    runner's second pool and wait on nothing, so the call finishes."""
+    srr = list(parse(data("SRR492066.fna.gz")))[0].seq
+    seqs = [srr[k * 2500:k * 2500 + 3000] for k in range(24)]
+    assert len(seqs) > 2 * meta_cuda.PREP_THREADS
+    finder = GeneFinder(meta=True, backend="refcore")
+    expected = [finder.find_genes(s) for s in seqs]
+    runner = _runner()
+    got = []
+    call = threading.Thread(
+        target=lambda: got.extend(runner.find_genes_batch(seqs)),
+        daemon=True)
+    call.start()
+    call.join(timeout=120)
+    assert not call.is_alive(), "the call did not finish in 120 s"
+    runner.close()
+    assert runner.route_counts == {"std": 0, "mega": 0, "c": len(seqs)}
+    _assert_same_bytes(expected, got)
+    assert [g._num_seq for g in got] == list(range(1, len(seqs) + 1))
 
 
 @needs_bins

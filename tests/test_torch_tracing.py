@@ -177,6 +177,36 @@ def test_prep_records_the_route_and_why(srr, monkeypatch, route):
         assert _named("launch")[0].attrs["route"] == expected[0]
 
 
+@needs_bins
+def test_exact_route_bins_run_beside_their_span(srr, mega_only,
+                                                monkeypatch):
+    """Route "c" in meta mode: one `exact_route.bin` span a candidate bin,
+    a child of its contig's `exact_route` span with `queued_s`, run on
+    another thread than that span's and inside its time; the span counts
+    its bins and the threads they may run on."""
+    monkeypatch.setattr(dp_cuda, "MEGA_CHUNKS", 0)
+    seqs = [srr[:8000], srr[8000:16000]]
+    runner = _runner()
+    tracing.enable()
+    runner.find_genes_batch(seqs)
+    runner.close()
+    exact = sorted(_named("exact_route"), key=lambda s: s.attrs["contig"])
+    assert [s.attrs["bp"] for s in exact] == [8000, 8000]
+    for ex, seq in zip(exact, seqs):
+        bins = [s for s in tracing.spans() if s.parent == ex.id]
+        assert {s.name for s in bins} == {"exact_route.bin"}
+        assert sorted(s.attrs["bin"] for s in bins) == \
+            runner._candidate_bins(Sequence(seq))
+        assert ex.attrs["bins"] == len(bins) > 1
+        assert ex.attrs["workers"] == meta_cuda.PREP_THREADS
+        assert ex.thread not in {s.thread for s in bins}
+        for s in bins:
+            assert s.call == ex.call and s.attrs["queued_s"] >= 0
+            assert ex.start <= s.start <= s.end <= ex.end
+    assert len(_named("exact_route.bin")) == \
+        sum(s.attrs["bins"] for s in exact)
+
+
 def test_mega_refusal_names_the_first_broken_constraint():
     """`_mega_refusal` on made-up geometries; `_mega_ok` is its None."""
     import numpy as np
