@@ -7,8 +7,8 @@
 //
 // What bounds it on the H100: bytes.  At the genome's launch (B = 16,
 // S = 2,555,904) it must write 163.6 MB and read 10.2 MB of codes and
-// 0.26 MB of tables: 52 us at 3.35 TB/s, against 0.6 us for its 41 M
-// lookups and adds at the f32 rate.  The TPU kernel's 7/5 one-hot code
+// 0.26 MB of tables: 52 us at 3.35 TB/s, against 1.2 us for its 41 M
+// lookups and adds at the f64 rate.  The TPU kernel's 7/5 one-hot code
 // split fed the matrix unit; here the lookup is a plain read of the bin's
 // 16 KB table, staged once a block in shared memory.  Those lookups are
 // random shared-memory gathers (bank conflicts), the kernel's costliest
@@ -21,8 +21,9 @@
 // go through a shared-memory copy of the tile, from which each thread
 // scans 12 consecutive positions.  The carry across tiles is
 // reduce-then-scan: a first kernel writes each chunk's phase totals to a
-// (B, chunks, 3) scratch, the scan kernel sums its chunk's predecessors in
-// a fixed order, so results are bit-identical from call to call.  The
+// (B, chunks, 3) float64 scratch, the scan kernel sums its chunk's
+// predecessors in a fixed order, so results are bit-identical from call
+// to call.  Sums are float64, each output rounded once (phase_scan.cuh).  The
 // reduce kernel takes two rows a block, their tables interleaved, so one
 // 8-byte gather looks a code up for both (8 x 63 blocks at the genome).  The
 // code row comes from device memory about once a pass: the grid's x axis
@@ -85,13 +86,13 @@ struct LookupPairs {
 #pragma unroll
         for (int k = 0; k < SLOTS; ++k) v[k] = load_slot(codes, p0, k);
     }
-    __device__ __forceinline__ void add_code(float (&acc)[2][3], int m,
+    __device__ __forceinline__ void add_code(acc_t (&acc)[2][3], int m,
                                              int code) const {
         const float2 v = tab2[code & (NCODES - 1)];
         acc[0][m] += v.x;
         acc[1][m] += v.y;
     }
-    __device__ __forceinline__ void add(float (&acc)[2][3],
+    __device__ __forceinline__ void add(acc_t (&acc)[2][3],
                                         const int4 (&v)[SLOTS]) const {
 #pragma unroll
         for (int k = 0; k < SLOTS; ++k) {
@@ -101,7 +102,7 @@ struct LookupPairs {
             add_code(acc, k % 3, v[k].w);
         }
     }
-    __device__ __forceinline__ void add_one(float (&acc)[2][3], int m,
+    __device__ __forceinline__ void add_one(acc_t (&acc)[2][3], int m,
                                             long long p) const {
         add_code(acc, m, codes[p]);
     }
@@ -110,9 +111,9 @@ struct LookupPairs {
 // Rows 2 g and 2 g + 1 (zeros past B) of the table, interleaved.
 __global__ void __launch_bounds__(THREADS) dc_chain_reduce_kernel(
         const float* __restrict__ table, const int* __restrict__ codes,
-        float* __restrict__ scratch, int B, int tpb, long long chunks) {
+        acc_t* __restrict__ scratch, int B, int tpb, long long chunks) {
     __shared__ float2 tab2[NCODES];
-    __shared__ float red[6 * WARPS];
+    __shared__ acc_t red[6 * WARPS];
     const int b0 = 2 * blockIdx.x;
     const int c = blockIdx.y;
     const bool pair = b0 + 1 < B;
@@ -121,7 +122,7 @@ __global__ void __launch_bounds__(THREADS) dc_chain_reduce_kernel(
             table[(long long)b0 * NCODES + k],
             pair ? table[(long long)(b0 + 1) * NCODES + k] : 0.0f);
     __syncthreads();
-    float tot[6];
+    acc_t tot[6];
     reduce_chunk<2>(LookupPairs{codes, tab2}, c, tpb, tot, red);
     if (threadIdx.x == 0)
         for (int r = 0; r < (pair ? 2 : 1); ++r)
@@ -133,7 +134,7 @@ __global__ void __launch_bounds__(THREADS) dc_chain_reduce_kernel(
 
 __global__ void __launch_bounds__(THREADS) dc_chain_kernel(
         const float* __restrict__ table, const int* __restrict__ codes,
-        float* __restrict__ out, const float* __restrict__ scratch,
+        float* __restrict__ out, const acc_t* __restrict__ scratch,
         long long S, int tpb, long long chunks) {
     __shared__ float tab[NCODES];
     __shared__ __align__(16) float buf[2][TILE];
@@ -149,7 +150,7 @@ __global__ void __launch_bounds__(THREADS) dc_chain_kernel(
 }  // namespace
 
 extern "C" int dc_chain_launch(const float* table, const int* codes,
-                               float* out, float* scratch, int B,
+                               float* out, double* scratch, int B,
                                long long S, int tiles_per_block,
                                cudaStream_t stream) {
     using namespace phase_scan;

@@ -9,7 +9,7 @@
 //
 // What bounds it on the H100: bytes.  A std launch (B = 128, S = 49,152)
 // must read 25.2 MB and write 25.2 MB: 15.0 us at 3.35 TB/s, against
-// 0.1 us for its 6.3 M adds at the f32 rate.  The TPU kernel ran three
+// 0.2 us for its 6.3 M adds at the f64 rate.  The TPU kernel ran three
 // masked log-shift scans per 2048-lane tile with (B, 3) carries in VMEM
 // scratch across its sequential grid; none of that carries over.
 //
@@ -19,10 +19,11 @@
 // shared-memory copy of the tile hands each thread 12 consecutive
 // positions, so the three phases need no stride.  The carry across tiles
 // is reduce-then-scan: a first kernel writes each chunk's phase totals to
-// a (B, chunks, 3) scratch, the scan kernel sums its chunk's predecessors
-// in a fixed order, so results are bit-identical from call to call.  The
-// second pass reads x again (from L2 where it still lies): 75 MB moved
-// for the 50 MB the bound counts.  A row that is not 16-byte aligned
+// a (B, chunks, 3) float64 scratch, the scan kernel sums its chunk's
+// predecessors in a fixed order, so results are bit-identical from call
+// to call.  Sums are float64, each output rounded once (phase_scan.cuh).
+// The second pass reads x again (from L2 where it still lies): 75 MB
+// moved for the 50 MB the bound counts.  A row that is not 16-byte aligned
 // (S % 4 != 0) and the ragged last tile take coalesced 4-byte accesses.
 
 #include "phase_scan.cuh"
@@ -48,12 +49,12 @@ struct Values {
 #pragma unroll
         for (int k = 0; k < SLOTS; ++k) b4[threadIdx.x + k * THREADS] = v[k];
     }
-    __device__ __forceinline__ void add(float (&acc)[1][3],
+    __device__ __forceinline__ void add(acc_t (&acc)[1][3],
                                         const float4 (&v)[SLOTS]) const {
 #pragma unroll
         for (int k = 0; k < SLOTS; ++k) add_slot(acc[0], k, v[k]);
     }
-    __device__ __forceinline__ void add_one(float (&acc)[1][3], int m,
+    __device__ __forceinline__ void add_one(acc_t (&acc)[1][3], int m,
                                             long long p) const {
         acc[0][m] += xr[p];
     }
@@ -63,12 +64,12 @@ struct Values {
 };
 
 __global__ void __launch_bounds__(THREADS) phase_cumsum_reduce_kernel(
-        const float* __restrict__ x, float* __restrict__ scratch, long long S,
+        const float* __restrict__ x, acc_t* __restrict__ scratch, long long S,
         int tpb, long long chunks) {
-    __shared__ float red[3 * WARPS];
+    __shared__ acc_t red[3 * WARPS];
     const int b = blockIdx.x;
     const int c = blockIdx.y;
-    float tot[3];
+    acc_t tot[3];
     reduce_chunk<1>(Values{x + (long long)b * S}, c, tpb, tot, red);
     if (threadIdx.x == 0)
 #pragma unroll
@@ -78,7 +79,7 @@ __global__ void __launch_bounds__(THREADS) phase_cumsum_reduce_kernel(
 
 __global__ void __launch_bounds__(THREADS) phase_cumsum_kernel(
         const float* __restrict__ x, float* __restrict__ out,
-        const float* __restrict__ scratch, long long S, int tpb,
+        const acc_t* __restrict__ scratch, long long S, int tpb,
         long long chunks) {
     __shared__ __align__(16) float buf[2][TILE];
     __shared__ ScanSmem sm;
@@ -91,7 +92,7 @@ __global__ void __launch_bounds__(THREADS) phase_cumsum_kernel(
 }  // namespace
 
 extern "C" int phase_cumsum_launch(const float* x, float* out,
-                                   float* scratch, int B, long long S,
+                                   double* scratch, int B, long long S,
                                    int tiles_per_block, cudaStream_t stream) {
     using namespace phase_scan;
     long long chunks;

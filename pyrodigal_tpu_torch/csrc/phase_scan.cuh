@@ -18,10 +18,17 @@
 //
 // Both kernels load the next tile into registers before they work on
 // the current one, so a block's loads overlap its scans and barriers.
-// Every sum has a fixed order (sequential chains, shuffle trees of fixed
-// shape), so two calls on the same inputs give the same bits.  The
-// longest chain of additions from an input to an output (the depth that
-// `star_cuda.sum_order_depth` states):
+// Every sum is a double (`acc_t`): the f32 inputs add in float64 (chunk
+// totals, carries and the scratch too) and each output rounds to f32
+// once, so the kernels give the plain twins' f64-then-rounded sums, not
+// sums rounded at every add: a coding score is a difference of two prefix
+// sums, and an f32 rounding there moved a node's score across one of the
+// scoring's thresholds (cscore < 5) on the card where the twin and the
+// exact engine did not.  The kernels are bound by bytes, so the f64 adds
+// cost no time.  Every sum has a fixed order (sequential chains, shuffle
+// trees of fixed shape), so two calls on the same inputs give the same
+// bits.  The longest chain of additions from an input to an output (the
+// depth that `star_cuda.sum_order_depth` states):
 //   reduce:  4 a phase a tile, chained over tpb tiles, then 5 warp and
 //            3 cross-warp tree levels:                   4 tpb + 8
 //   carry:   ceil(chunks / THREADS) chained, then 8 tree levels
@@ -46,6 +53,9 @@ constexpr int SLOTS = TILE / 4 / THREADS;  // 16-byte slots a thread: 3
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_TILES_PER_BLOCK = 16;
 
+// every sum of the two kernels: inputs and outputs stay float32
+using acc_t = double;
+
 static_assert(TILE % 3 == 0 && ITEMS % 3 == 0 && ITEMS % 4 == 0,
               "a tile and a thread's positions are whole triples and whole "
               "16-byte slots, so a position's phase is its index mod 3");
@@ -61,48 +71,48 @@ __device__ __forceinline__ bool aligned16(const void* p) {
 // Exclusive scan over the block of each thread's three phase totals `a`:
 // `excl` gets the sum over lower threads, `total` the block's sum.  A
 // Hillis-Steele shuffle scan in each warp (5 levels), then warp 0 scans
-// the warp totals (3 levels).  Two barriers; `wsum` (3 WARPS floats) and
+// the warp totals (3 levels).  Two barriers; `wsum` (3 WARPS sums) and
 // `wofs` (3 WARPS + 3) are free again after the caller's next barrier.
-__device__ __forceinline__ void block_scan3(const float (&a)[3],
-                                            float (&excl)[3],
-                                            float (&total)[3], float* wsum,
-                                            float* wofs) {
+__device__ __forceinline__ void block_scan3(const acc_t (&a)[3],
+                                            acc_t (&excl)[3],
+                                            acc_t (&total)[3], acc_t* wsum,
+                                            acc_t* wofs) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    float inc[3], wex[3];
+    acc_t inc[3], wex[3];
 #pragma unroll
     for (int k = 0; k < 3; ++k) inc[k] = a[k];
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1)
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
-            const float y = __shfl_up_sync(FULL, inc[k], off);
+            const acc_t y = __shfl_up_sync(FULL, inc[k], off);
             if (lane >= off) inc[k] += y;
         }
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-        const float y = __shfl_up_sync(FULL, inc[k], 1);
-        wex[k] = lane == 0 ? 0.0f : y;
+        const acc_t y = __shfl_up_sync(FULL, inc[k], 1);
+        wex[k] = lane == 0 ? 0.0 : y;
     }
     if (lane == 31)
 #pragma unroll
         for (int k = 0; k < 3; ++k) wsum[warp * 3 + k] = inc[k];
     __syncthreads();
     if (warp == 0) {
-        float s[3];
+        acc_t s[3];
 #pragma unroll
         for (int k = 0; k < 3; ++k) s[k] = lane < WARPS ? wsum[lane * 3 + k]
-                                                        : 0.0f;
+                                                        : 0.0;
 #pragma unroll
         for (int off = 1; off < WARPS; off <<= 1)
 #pragma unroll
             for (int k = 0; k < 3; ++k) {
-                const float y = __shfl_up_sync(FULL, s[k], off);
+                const acc_t y = __shfl_up_sync(FULL, s[k], off);
                 if (lane >= off) s[k] += y;
             }
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
-            const float y = __shfl_up_sync(FULL, s[k], 1);
-            if (lane < WARPS) wofs[lane * 3 + k] = lane == 0 ? 0.0f : y;
+            const acc_t y = __shfl_up_sync(FULL, s[k], 1);
+            if (lane < WARPS) wofs[lane * 3 + k] = lane == 0 ? 0.0 : y;
             if (lane == WARPS - 1) wofs[WARPS * 3 + k] = s[k];
         }
     }
@@ -118,9 +128,9 @@ __device__ __forceinline__ void block_scan3(const float (&a)[3],
 // Sum of N values over the block, in every thread: a shuffle-down tree
 // in each warp (5 levels), then a pairwise tree over the WARPS warp
 // totals (3 levels) that every thread computes alike.  `red` holds
-// N * WARPS floats; it is free again after the caller's next barrier.
+// N * WARPS sums; it is free again after the caller's next barrier.
 template <int N>
-__device__ __forceinline__ void block_sum(float (&a)[N], float* red) {
+__device__ __forceinline__ void block_sum(acc_t (&a)[N], acc_t* red) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
@@ -132,7 +142,7 @@ __device__ __forceinline__ void block_sum(float (&a)[N], float* red) {
     __syncthreads();
 #pragma unroll
     for (int k = 0; k < N; ++k) {
-        float w[WARPS];
+        acc_t w[WARPS];
 #pragma unroll
         for (int i = 0; i < WARPS; ++i) w[i] = red[i * N + k];
 #pragma unroll
@@ -145,9 +155,9 @@ __device__ __forceinline__ void block_sum(float (&a)[N], float* red) {
 
 // Shared memory of a scan block besides its two tile buffers.
 struct ScanSmem {
-    float wsum[3 * WARPS];
-    float wofs[3 * WARPS + 3];
-    float red[3 * WARPS];
+    acc_t wsum[3 * WARPS];
+    acc_t wofs[3 * WARPS + 3];
+    acc_t red[3 * WARPS];
 };
 
 // A kernel's source of values, `Src`: a row (or N rows, for reduce_chunk)
@@ -156,14 +166,14 @@ struct ScanSmem {
 //   bool vec() const                    16-byte loads are aligned
 //   void load(Vec (&v)[SLOTS], p0)      a whole tile's vectors
 //   void put(float* buf, v)             their values into buf, in order
-//   void add(float (&acc)[N][3], v)     their values into the rotated
+//   void add(acc_t (&acc)[N][3], v)     their values into the rotated
 //                                       phase totals (see reduce_chunk)
 //   void add_one(acc, m, p)             one value into acc[.][m], and
 //   float value(p)                      one value: the 4-byte path
 
 // Slot t + k THREADS of a tile, values v, into the rotated phase totals
 // of thread t (see reduce_chunk).
-__device__ __forceinline__ void add_slot(float (&acc)[3], int k,
+__device__ __forceinline__ void add_slot(acc_t (&acc)[3], int k,
                                          const float4& v) {
     acc[k % 3] += v.x;
     acc[(k + 1) % 3] += v.y;
@@ -180,12 +190,12 @@ __device__ __forceinline__ void add_slot(float (&acc)[3], int k,
 // one is summed.
 template <int N, class Src>
 __device__ __forceinline__ void reduce_chunk(const Src& src, int c, int tpb,
-                                             float (&tot)[3 * N],
-                                             float* red) {
+                                             acc_t (&tot)[3 * N],
+                                             acc_t* red) {
     static_assert(THREADS % 3 == 1, "slot t + k THREADS: phase (t + k) % 3");
-    float acc[N][3];
+    acc_t acc[N][3];
 #pragma unroll
-    for (int r = 0; r < N; ++r) acc[r][0] = acc[r][1] = acc[r][2] = 0.0f;
+    for (int r = 0; r < N; ++r) acc[r][0] = acc[r][1] = acc[r][2] = 0.0;
     const long long t0 = (long long)c * tpb;
     if (src.vec()) {
         typename Src::Vec v[SLOTS], w[SLOTS];
@@ -220,15 +230,15 @@ __device__ __forceinline__ void reduce_chunk(const Src& src, int c, int tpb,
 // the tile's values in order, zero past the row's end, and the caller has
 // synchronised since writing it.  Each thread scans its ITEMS positions,
 // the block scans the threads' phase totals, the results go back into
-// `buf` (then a barrier) and are stored to `dst` (the tile's first output,
-// n valid positions): float4 stores when the tile is whole and `dst` is
-// 16-byte aligned, else coalesced scalar stores.  `carry` advances by the
-// tile's totals.
+// `buf` (then a barrier), each rounded to f32 once, and are stored to
+// `dst` (the tile's first output, n valid positions): float4 stores when
+// the tile is whole and `dst` is 16-byte aligned, else coalesced scalar
+// stores.  `carry` advances by the tile's totals.
 __device__ __forceinline__ void scan_tile(float* buf, float* __restrict__ dst,
-                                          int n, float (&carry)[3],
+                                          int n, acc_t (&carry)[3],
                                           ScanSmem& sm) {
     float4* b4 = reinterpret_cast<float4*>(buf);
-    float loc[ITEMS];
+    acc_t loc[ITEMS];
 #pragma unroll
     for (int s = 0; s < SLOTS; ++s) {
         const float4 v = b4[threadIdx.x * SLOTS + s];
@@ -239,18 +249,18 @@ __device__ __forceinline__ void scan_tile(float* buf, float* __restrict__ dst,
     }
 #pragma unroll
     for (int j = 3; j < ITEMS; ++j) loc[j] += loc[j - 3];
-    const float agg[3] = {loc[ITEMS - 3], loc[ITEMS - 2], loc[ITEMS - 1]};
-    float excl[3], total[3], base[3];
+    const acc_t agg[3] = {loc[ITEMS - 3], loc[ITEMS - 2], loc[ITEMS - 1]};
+    acc_t excl[3], total[3], base[3];
     block_scan3(agg, excl, total, sm.wsum, sm.wofs);
 #pragma unroll
     for (int k = 0; k < 3; ++k) base[k] = carry[k] + excl[k];
 #pragma unroll
     for (int s = 0; s < SLOTS; ++s)
         b4[threadIdx.x * SLOTS + s] = make_float4(
-            base[(4 * s) % 3] + loc[4 * s],
-            base[(4 * s + 1) % 3] + loc[4 * s + 1],
-            base[(4 * s + 2) % 3] + loc[4 * s + 2],
-            base[(4 * s + 3) % 3] + loc[4 * s + 3]);
+            (float)(base[(4 * s) % 3] + loc[4 * s]),
+            (float)(base[(4 * s + 1) % 3] + loc[4 * s + 1]),
+            (float)(base[(4 * s + 2) % 3] + loc[4 * s + 2]),
+            (float)(base[(4 * s + 3) % 3] + loc[4 * s + 3]));
 #pragma unroll
     for (int k = 0; k < 3; ++k) carry[k] += total[k];
     __syncthreads();
@@ -265,16 +275,16 @@ __device__ __forceinline__ void scan_tile(float* buf, float* __restrict__ dst,
 }
 
 // The scan pass of chunk c of a row: its carry from the row's chunk
-// totals `scr` (3 a chunk), then its tiles in order, the next whole
+// totals `scr` (3 a chunk, float64), then its tiles in order, the next whole
 // tile's vectors loaded while the current one is scanned.
 template <class Src>
 __device__ __forceinline__ void scan_chunk(const Src& src,
-                                           const float* __restrict__ scr,
+                                           const acc_t* __restrict__ scr,
                                            float* __restrict__ orow,
                                            long long S, int c, int tpb,
                                            float (*buf)[TILE],
                                            ScanSmem& sm) {
-    float carry[3] = {0.0f, 0.0f, 0.0f};
+    acc_t carry[3] = {0.0, 0.0, 0.0};
     for (int i = threadIdx.x; i < c; i += THREADS)
 #pragma unroll
         for (int k = 0; k < 3; ++k) carry[k] += scr[3 * i + k];

@@ -373,7 +373,8 @@ class CudaMetaRunner:
             packed, bin_idx, gidx, nonsd = self._std_inputs(work, geoms)
         sp = tracing.current("launch")
         if sp:
-            sp.set(route="std", items=len(work), rows=len(work),
+            sp.set(route="std", items=len(work),
+                   contigs=len({ci for ci, _b, _key in work}), rows=len(work),
                    rows_bucket=len(bin_idx),
                    nodes=sum(g["nn"] for g in geoms.values()),
                    nodes_bucket=len(geoms) * NODE_BUCKET,

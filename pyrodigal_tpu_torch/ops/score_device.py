@@ -325,7 +325,10 @@ def _take(table, idx):
 def _derive_m6(geo):
     """6-mer code rows (G, S) from the digit sequences, with mer_ndx
     semantics (N folds to C; reference: _sequence.h mer_ndx); m6r is zero
-    past each geometry's own sequence."""
+    past each geometry's own sequence.  No score reads that zero: the dc
+    prefix sums difference only positions inside a contig, and the RBS
+    scan reads a rev 6-mer past the end as `_derive_candidates` builds
+    it; the zero keeps the packed prefix sums' rounding as it was."""
     d = geo["digits"].to(torch.int32)
     S = d.shape[1]
     b = d & 3
@@ -411,6 +414,14 @@ def _derive_candidates(geo, m6f, m6r, has_nonsd):
     idx = torch.where(fwd, loc - 20 + p, loc + 20 - p)
     ok = (idx >= 0) & is_start & not_edge
     code = torch.where(fwd, Wf[..., 28:43], Wr[..., 5:20].flip(-1))
+    # a rev 6-mer that reaches past the contig's 3' end, where m6r is zero:
+    # the exact engine reads every base there as C (code 2, refcore.c
+    # rc_rbs_score), and the 6-mer's bases inside the contig are the low
+    # ones of the contig's last 6-mer (a fwd 6-mer never gets there)
+    past = (idx + 1 - lsl).clamp(0, 6)
+    last = _window(m6r, ndx - loc[..., 0] + lsl[..., 0] - 1, 1)
+    code = torch.where(past > 0, (2730 & ((1 << 2 * past) - 1))
+                       | ((last << 2 * past) & 4095), code)
 
     # upstream-composition mers: slots 0-1 = -1,-2; 2-31 = -15..-44
     with tracing.span("launch.wait"):
@@ -676,10 +687,11 @@ def score_dp_launch(tables, geo, bin_idx, gidx, *, is_meta, closed,
     best terminal path score per row, (BT,) f32 (the reference's
     `pack_winners`, without the bitcast; padded rows give values the
     caller ignores)."""
-    (ndx, stop_val, typ, strand, win_lo, valid, edge,
-     cscore, ssc, rsc, usc, stw) = _score_items(
-        tables, geo, bin_idx, gidx, is_meta=is_meta, closed=closed,
-        has_nonsd=has_nonsd)
+    with tracing.span("launch.score"):
+        (ndx, stop_val, typ, strand, win_lo, valid, edge,
+         cscore, ssc, rsc, usc, stw) = _score_items(
+            tables, geo, bin_idx, gidx, is_meta=is_meta, closed=closed,
+            has_nonsd=has_nonsd)
     cs = (cscore + ssc).contiguous()
     rsc = rsc.contiguous()
     usc = usc.contiguous()
@@ -702,10 +714,11 @@ def score_dp_launch_mega(tables, geo, bin_idx, *, is_meta, closed,
     Returns the best terminal path score per row, (BT,) f32, or per
     contig of a pack, (CP, BT) f32 (padded rows and slots give values the
     caller ignores)."""
-    (ndx, stop_val, typ, strand, win_lo, valid, edge,
-     cscore, ssc, rsc, usc, stw) = _score_items(
-        tables, geo, bin_idx, is_meta=is_meta, closed=closed,
-        has_nonsd=has_nonsd)
+    with tracing.span("launch.score"):
+        (ndx, stop_val, typ, strand, win_lo, valid, edge,
+         cscore, ssc, rsc, usc, stw) = _score_items(
+            tables, geo, bin_idx, is_meta=is_meta, closed=closed,
+            has_nonsd=has_nonsd)
     ndx, stop_val, typ, strand, win_lo, valid, edge = (
         a[0] for a in (ndx, stop_val, typ, strand, win_lo, valid, edge))
     geometry = dp_cuda.mega_geometry(ndx, stop_val, typ, strand, valid,

@@ -75,10 +75,12 @@ def sum_order_depth(S):
 
 
 def sum_order_bound(x_abs, ref):
-    """How far the kernel's f32 prefix sums may lie from the plain twin's
-    (`ref`, f64 rounded once): depth x u x (the phase prefix sum of
-    |x|, `x_abs` (B, S)) for the kernel's additions, + u |ref| for the
-    twin's one rounding.  Float64, (B, S)."""
+    """How far prefix sums added in f32 in the kernels' order may lie from
+    the plain twin's (`ref`, f64 rounded once): depth x u x (the phase
+    prefix sum of |x|, `x_abs` (B, S)) for the additions, + u |ref| for
+    the twin's one rounding.  Float64, (B, S).  The kernels add in f64
+    and round once (csrc/phase_scan.cuh), so they lie far inside it:
+    within one f32 ulp of the twin's."""
     cabs = phase_cumsum_plain(x_abs.double(), rounded=False)
     return (sum_order_depth(x_abs.shape[1]) * U * cabs
             + U * ref.double().abs())
@@ -112,7 +114,7 @@ def dc_phase_cumsum(table, codes):
     lib = _build.lib()
     with torch.cuda.device(dev):
         out = torch.empty((B, S), dtype=torch.float32, device=dev)
-        scratch = torch.empty((B, chunks, 3), dtype=torch.float32,
+        scratch = torch.empty((B, chunks, 3), dtype=torch.float64,
                               device=dev)
         stream = _stream(dev)
         _build.check(lib.dc_chain_launch(
@@ -148,7 +150,7 @@ def phase_cumsum(x):
     lib = _build.lib()
     with torch.cuda.device(dev):
         out = torch.empty_like(x)
-        scratch = torch.empty((B, chunks, 3), dtype=torch.float32,
+        scratch = torch.empty((B, chunks, 3), dtype=torch.float64,
                               device=dev)
         stream = _stream(dev)
         _build.check(lib.phase_cumsum_launch(

@@ -132,7 +132,7 @@ def main():
     def dc_this(tpb, c):
         chunks = -(-(-(-S // star_cuda.TILE)) // tpb)
         out = torch.empty((B, S), dtype=torch.float32, device=dev)
-        scr = torch.empty((B, chunks, 3), dtype=torch.float32, device=dev)
+        scr = torch.empty((B, chunks, 3), dtype=torch.float64, device=dev)
         _call(_build.lib(), "dc_chain_launch",
               *_ptrs(table, c, out, scr), B, S, tpb)
         return out
@@ -140,7 +140,7 @@ def main():
     def pc_this(tpb, x):
         chunks = -(-(-(-SS // star_cuda.TILE)) // tpb)
         out = torch.empty_like(x)
-        scr = torch.empty((BT, chunks, 3), dtype=torch.float32, device=dev)
+        scr = torch.empty((BT, chunks, 3), dtype=torch.float64, device=dev)
         _call(_build.lib(), "phase_cumsum_launch",
               *_ptrs(x, out, scr), BT, SS, tpb)
         return out

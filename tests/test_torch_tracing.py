@@ -24,7 +24,8 @@ needs_bins = pytest.mark.skipif(
     reason="metagenomic bins asset not built (scripts/build_bins.py)",
 )
 LAYERS = {"call", "prep", "prep.nodes", "prep.geometry", "prep.route",
-          "launch", "launch.pack", "launch.wait", "finish", "finish.rerun"}
+          "launch", "launch.pack", "launch.score", "launch.wait", "finish",
+          "finish.rerun"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -114,6 +115,7 @@ def test_enabled_spans_form_one_tree_a_call(srr):
            for b in range(len(METAGENOMIC_BINS))}
     cands = [runner._candidate_bins(Sequence(s)) for s in seqs]
     assert launch.attrs["route"] == "std"
+    assert launch.attrs["contigs"] == 2
     assert launch.attrs["rows"] == sum(map(len, cands))
     assert launch.attrs["rows_bucket"] == -(-launch.attrs["rows"] // 16) * 16
     assert launch.attrs["node_rows"] == sum(
@@ -123,6 +125,33 @@ def test_enabled_spans_form_one_tree_a_call(srr):
     assert {s.attrs["contig"] for s in _named("finish")} == {0, 1}
     assert len(_named("finish.rerun")) == sum(
         s.attrs["bins"] for s in _named("finish"))
+
+
+@needs_bins
+@pytest.mark.parametrize("route", ["std", "mega"])
+def test_launch_score_holds_the_scoring_and_its_waits(srr, monkeypatch,
+                                                      route):
+    """A launch's device scoring is one `launch.score` span under its
+    `launch`, and the host syncs inside the scoring are its own
+    `launch.wait` children."""
+    if route == "mega":
+        monkeypatch.setattr(meta_cuda, "SEQ_BUCKET", 2048)
+    runner = _runner()
+    tracing.enable()
+    runner.find_genes_batch([srr[:6000], srr[6000:14000]])
+    runner.close()
+    spans = {s.id: s for s in tracing.spans()}
+    (launch,) = _named("launch")
+    assert launch.attrs["route"] == route
+    (score,) = _named("launch.score")
+    up = spans[score.parent]
+    while up.name != "launch":
+        up = spans[up.parent]
+    assert up is launch
+    assert launch.start <= score.start <= score.end <= launch.end
+    inner = [s for s in spans.values() if s.parent == score.id]
+    assert inner and {s.name for s in inner} == {"launch.wait"}
+    assert all(score.start <= s.start <= s.end <= score.end for s in inner)
 
 
 @needs_bins
