@@ -13,7 +13,7 @@ Phases, each printing one line:
    the HBM rate or operations over the f32 rate, the larger) and, for
    phase-cumsum, `torch.cumsum` of the same function, for the seg-scan
    one `torch.cummax` of its four walks' int64 keys.  The two prefix
-   sums are held to their sum-order bound (`star_cuda.sum_order_bound`),
+   sums are held to their round-once bound (`star_cuda.round_once_bound`),
    checked bit-identical across two calls, and timed as the mean of 10
    calls in one CUDA graph.  Star's pointers and integer tables are held
    exactly equal to its twin's, its float tables within rtol 1e-6 (and
@@ -281,16 +281,16 @@ def short_contigs():
 
 def _bound_check(name, got, ref, x_abs):
     """A prefix sum against its plain (f64, rounded once) twin, within the
-    kernel's sum-order bound (`star_cuda.sum_order_bound`: its depth
-    times u times the prefix sum of |x|, plus the twin's rounding);
+    kernel's round-once bound (`star_cuda.round_once_bound`: one f32 ulp
+    plus the f64 sums' own error);
     returns (max abs err, worst ratio of error to bound)."""
     from pyrodigal_tpu_torch.ops import star_cuda
 
     err = (got.double() - ref.double()).abs()
-    bound = star_cuda.sum_order_bound(x_abs, ref)
+    bound = star_cuda.round_once_bound(x_abs, ref)
     if not bool((err <= bound).all()):
         raise AssertionError(
-            f"{name} deviates beyond its sum-order bound: max "
+            f"{name} deviates beyond its round-once bound: max "
             f"{float(err.max())}, worst ratio {float((err / bound).max())}")
     return float(err.max()), float((err / bound).max())
 
@@ -614,7 +614,7 @@ def phase_build():
 
 def _prefix_kernel_record(kernel, cases, fn, plain, x_abs, bound):
     """A phase prefix-sum kernel on its path's operands: each case
-    (label, args) against the plain twin within the sum-order bound and
+    (label, args) against the plain twin within the round-once bound and
     twice bit-identical; then the last case timed: the mean of 10 calls
     in one CUDA graph (`ms`) and on the stream through the wrapper
     (`ms_stream`: host launches included), the plain twin over 3
@@ -1346,7 +1346,7 @@ def _captured(fn, *args):
 
 def _single_kernel_checks(label, sweep, args):
     """Every kernel call of one single-mode launch against its plain twin
-    on the same inputs: the prefix sums within their sum-order bound,
+    on the same inputs: the prefix sums within their round-once bound,
     star's pointers and integer tables exact and its floats within rtol
     1e-6, the seg-scan bit for bit, the DPs' four outputs exactly equal.
     The mega DP's twin runs on a CPU copy of the inputs, as the CPU tests

@@ -26,13 +26,12 @@ def metric(name):
 
 
 def test_the_mix_is_the_assembly_stream_of_the_traffic_tests():
-    """The traffic tests' assembly stream, with a pool of 4 calls (a run
-    compares every pool entry it ran with the reference, 5 s a call, and
-    has to end within run_seconds + 60)."""
+    """The traffic tests' assembly stream as they hold it, with one
+    traced and one warm call."""
     mix = generate.load_mix("short_contigs")
     assert {k: v for k, v in mix.items()
             if k not in ("about", "trace_calls", "warm_calls")} \
-        == dict(MIXES["short_contigs"], pool_calls=4)
+        == MIXES["short_contigs"]
     assert mix["trace_calls"] == mix["warm_calls"] == 1
 
 
@@ -42,7 +41,7 @@ def test_512_contigs_a_call_on_the_std_route():
     from pyrodigal_tpu_torch.sequence import Sequence
 
     pool = generate.make(SEED, generate.load_mix("short_contigs"))
-    assert [len(call) for call in pool] == [512] * 4
+    assert [len(call) for call in pool] == [512] * 8
     seqs = [s for call in pool for _n, s in call]
     assert 500 <= min(map(len, seqs)) and max(map(len, seqs)) <= 49_152
     runner = meta_cuda.CudaMetaRunner(METAGENOMIC_BINS, device="cpu")
@@ -123,22 +122,46 @@ def _events(kernels, calls):
     return {"traceEvents": ev}
 
 
-def test_std_kernel_ms_per_mbp_by_hand():
-    kernels = [("phase_cumsum_reduce_kernel(int)", 1000, 1100),
-               ("phase_cumsum_kernel(int)", 1100, 1300),
-               ("star_kernel", 1300, 1400),
-               ("seg_scan_rows_kernel", 1400, 1450),
-               ("dp_std_kernel", 1500, 2500),
-               ("dp_mega_kernel", 3000, 4000),
-               ("void at::native::elementwise_kernel", 4000, 5000)]
-    t = devtrace.Trace(_events(kernels, [(0, 6000)]), [0.0], [],
-                       bp=2_000_000)
+def test_std_kernel_ms_per_mbp_by_hand(monkeypatch):
+    """The four std-only kernels by their whole names, and the star
+    kernels whose midpoint lies in a std `launch` span once the program's
+    spans are on the trace's clock (its call annotation starts 99 ms
+    after the program's call span on the host clock); never the mega
+    route's kernels, nor a star kernel of a mega launch."""
+    spans = [span(1, "call", 1, 11, call=1, bp=2_000_000, contigs=512),
+             span(2, "launch", 5, 8, 1, 1, route="std", contigs=512),
+             span(3, "launch", 8.5, 10, 1, 1, route="mega")]
+    kernels = [("phase_cumsum_reduce_kernel(float const*, double*)",
+                104_000, 104_100),
+               ("(anonymous namespace)::phase_cumsum_kernel(float const*)",
+                104_100, 104_300),
+               ("star_kernel(int const*, int const*)", 104_300, 104_400),
+               ("seg_scan_rows_kernel", 104_400, 104_450),
+               ("void dp_std_kernel<8>(int const*)", 104_500, 105_500),
+               ("star_kernel(int const*, int const*)", 107_600, 107_700),
+               ("seg_scan_chain_kernel", 107_700, 107_800),
+               ("dc_chain_reduce_kernel", 107_800, 107_900),
+               ("dc_chain_kernel", 107_900, 108_000),
+               ("dp_mega_kernel", 108_000, 108_900),
+               ("void at::native::elementwise_kernel<128, 2>(int)",
+                109_000, 110_000)]
+    calls = [{"start": 0.5e-3, "end": 11.5e-3, "bp": 2_000_000,
+              "ok": True}]
+    monkeypatch.setattr(progspans, "program_spans", lambda: list(spans))
     m = metric("device.std_kernel_ms_per_mbp")
-    assert m.read(fake_run(trace=t)) == pytest.approx(1e3 * 1450e-6 / 2)
-    assert m.read(fake_run()) is None
-    none = devtrace.Trace(_events(kernels[5:], [(0, 6000)]), [0.0], [],
-                          bp=2_000_000)
-    assert m.read(fake_run(trace=none)) is None
+    assert m.base_name(kernels[1][0]) == "phase_cumsum_kernel"
+    assert m.base_name(kernels[4][0]) == "dp_std_kernel"
+    assert m.base_name(kernels[-1][0]) == "elementwise_kernel"
+
+    def run(ks):
+        t = devtrace.Trace(_events(ks, [(100_000, 111_000)]), [0.0], [],
+                           bp=2_000_000)
+        return fake_run(trace=t, calls=calls)
+    assert m.read(run(kernels)) == pytest.approx(1e3 * 1450e-6 / 2)
+    assert m.read(fake_run()) is None                   # no trace
+    assert m.read(run(kernels[5:])) is None             # the mega route's
+    monkeypatch.setattr(progspans, "program_spans", lambda: None)
+    assert m.read(run(kernels)) is None                 # no tracing
 
 
 def span(id_, name, a_ms, b_ms, parent=None, call=None, **attrs):

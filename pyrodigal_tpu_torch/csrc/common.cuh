@@ -51,9 +51,13 @@ __device__ __forceinline__ void fill_q60(float* q60) {
         q60[d] = (float)d / (float)OPER_DIST;
 }
 
-// Fixed-point quantisation, round half to even as jnp.round.
+// Fixed-point quantisation, round half to even as jnp.round, except that
+// a negative value never rounds to 0: a node's baseline is (0, no source)
+// and the DP takes a tie by its source index, so a gene worth -0.0002 would
+// otherwise enter the path that the exact engine refuses.
 __device__ __forceinline__ int quant(float x, float fxs) {
-    return __float2int_rn(x * fxs);
+    const int q = __float2int_rn(x * fxs);
+    return (q == 0 && x < 0.0f) ? -1 : q;
 }
 
 // A DP candidate as one int64 key: the value in the high word, `low` (the

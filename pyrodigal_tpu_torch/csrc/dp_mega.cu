@@ -61,7 +61,7 @@
 //   registers, while the current step runs.
 // Float arithmetic is the JAX kernel's operation order, built with
 // -fmad=false; quantisation is round-half-even (__float2int_rn), as
-// jnp.round.
+// jnp.round, but a negative value never rounds to 0 (common.cuh `quant`).
 
 #include "common.cuh"
 

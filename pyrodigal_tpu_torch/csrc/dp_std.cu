@@ -8,7 +8,8 @@
 // most FIXED_CHUNKS chunks of 640 -- the candidate of its target kind
 // (dp_pallas.py:165-258: the six skip rules, the artifact rule, the four
 // target cases, the triple-overlap frame loop), quantised as
-// round(cand * 2048) and added to score[j].  Among equal totals the JAX
+// round(cand * 2048) (a negative value never to 0: common.cuh `quant`)
+// and added to score[j].  Among equal totals the JAX
 // kernel picks the largest lane of a chunk and keeps the nearest chunk
 // (strict `>` across chunks), i.e. the largest j; the packed key
 // (total, j, m + 1) below gives the same order, with the ovmark frame m in

@@ -24,18 +24,14 @@
 // sums rounded at every add: a coding score is a difference of two prefix
 // sums, and an f32 rounding there moved a node's score across one of the
 // scoring's thresholds (cscore < 5) on the card where the twin and the
-// exact engine did not.  The kernels are bound by bytes, so the f64 adds
-// cost no time.  Every sum has a fixed order (sequential chains, shuffle
-// trees of fixed shape), so two calls on the same inputs give the same
-// bits.  The longest chain of additions from an input to an output (the
-// depth that `star_cuda.sum_order_depth` states):
-//   reduce:  4 a phase a tile, chained over tpb tiles, then 5 warp and
-//            3 cross-warp tree levels:                   4 tpb + 8
-//   carry:   ceil(chunks / THREADS) chained, then 8 tree levels
-//   scan:    the carry passes through tpb tile totals, then
-//            (carry + (warp offset + lane offset)) + thread prefix: +2
-//            (an input of the same tile: 3 + 5 + 3 + 3 = 14)
-//   total:   5 tpb + 18 + ceil(chunks / THREADS).
+// exact engine did not.  The f64 adds are not free: on an H100 (700 W)
+// dc-chain over the 2.56 Mbp genome's 16 bin rows went from 0.1014 to
+// 0.1248 ms (51.2% to 41.6% of its byte bound) and phase-cumsum over a
+// std launch's (128, 49,152) rows from 0.0273 to 0.0307 ms against the
+// same kernels summing in f32.  Every sum has a fixed order (sequential
+// chains, shuffle trees of fixed shape), so two calls on the same inputs
+// give the same bits, and an output lies within one f32 ulp of the
+// twin's (`star_cuda.round_once_bound`).
 
 #pragma once
 

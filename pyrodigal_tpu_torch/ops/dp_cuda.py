@@ -91,8 +91,12 @@ def _igm_same(ndx1, strand1, rsc1, usc1, ndx2, rsc2, usc2, st_wt):
 
 
 def _quant(x, fxs):
-    """Round half to even, as jnp.round."""
-    return torch.round(x * fxs).to(torch.int32)
+    """Round half to even, as jnp.round, except that a negative value
+    never rounds to 0 but to -1 (csrc/common.cuh `quant`): a node's
+    baseline is (0, no source) and a tie goes to the source, so a gene
+    worth less than 0 in f32 must not tie with it."""
+    q = torch.round(x * fxs).to(torch.int32)
+    return torch.where((q == 0) & (x < 0), -1, q).to(torch.int32)
 
 
 def kind4_of(typ, strand, valid):

@@ -37,7 +37,7 @@ def _stream(device):
 
 
 # --------------------------------------------------------------------------
-# the two phase prefix-sum kernels' launch shape and sum-order bound
+# the two phase prefix-sum kernels' launch shape and rounding bound
 # (csrc/phase_scan.cuh)
 # --------------------------------------------------------------------------
 
@@ -63,27 +63,17 @@ def _chunking(S):
     return tpb, -(-T // tpb)
 
 
-def sum_order_depth(S):
-    """The most additions on a path from an input to an output of a
-    prefix-sum kernel over rows of S positions (csrc/phase_scan.cuh): 4 a
-    phase a tile chained over the chunk's tpb tiles and an 8-level block
-    tree (the chunk totals), a chain of ceil(chunks / THREADS) and an
-    8-level tree (the chunk's carry), the tpb tile totals the carry
-    passes through, and 2 adds into the output."""
-    tpb, chunks = _chunking(S)
-    return 5 * tpb + 18 + -(-chunks // THREADS)
-
-
-def sum_order_bound(x_abs, ref):
-    """How far prefix sums added in f32 in the kernels' order may lie from
-    the plain twin's (`ref`, f64 rounded once): depth x u x (the phase
-    prefix sum of |x|, `x_abs` (B, S)) for the additions, + u |ref| for
-    the twin's one rounding.  Float64, (B, S).  The kernels add in f64
-    and round once (csrc/phase_scan.cuh), so they lie far inside it:
-    within one f32 ulp of the twin's."""
+def round_once_bound(x_abs, ref):
+    """How far a prefix-sum kernel's f32 output may lie from the plain
+    twin's (`ref`, the f64 sum rounded once): the kernels add in f64 too
+    (in the order of their tiles, block scans and carries;
+    csrc/phase_scan.cuh) and round each output once, so the two lie
+    within one f32 ulp, 2u |ref| (1 + 2u), plus the two f64 sums' own
+    error, at most 2^-52 x S x (the phase prefix sum of |x|, `x_abs`
+    (B, S)).  Float64, (B, S).  Prefix sums added in f32 lie outside it."""
     cabs = phase_cumsum_plain(x_abs.double(), rounded=False)
-    return (sum_order_depth(x_abs.shape[1]) * U * cabs
-            + U * ref.double().abs())
+    return (2.0 * U * (1.0 + 2.0 * U) * ref.double().abs()
+            + 2.0 ** -52 * x_abs.shape[1] * cabs)
 
 
 # --------------------------------------------------------------------------

@@ -11,8 +11,9 @@ The operands are a CPU runner's first std and mega launch on a 6 kb
 slice of SRR492066 (the mega route forced), recorded at the wrappers.
 Prints one JSON line a kernel: the error the call raised, if any, and
 otherwise whether it agrees with its plain twin (the prefix sums within
-`star_cuda.sum_order_bound`, star's integers exactly and its floats to
-rtol 1e-6, the DPs exactly).  Needs two CUDA devices; imports neither
+the checkout's own bound: `star_cuda.round_once_bound`, or
+`sum_order_bound` in a checkout whose kernels add in f32; star's
+integers exactly and its floats to rtol 1e-6, the DPs exactly).  Needs two CUDA devices; imports neither
 jax nor the JAX package.
 """
 
@@ -65,7 +66,9 @@ def _agrees(torch, star_cuda, kernel, args, got, ref):
         x_abs = (args[0][:, args[1].long()] if kernel == "dc_chain"
                  else args[0]).abs()
         err = (got.cpu().double() - ref.double()).abs()
-        return bool((err <= star_cuda.sum_order_bound(x_abs, ref)).all())
+        bound = getattr(star_cuda, "round_once_bound", None) \
+            or star_cuda.sum_order_bound
+        return bool((err <= bound(x_abs, ref)).all())
     if kernel == "star":
         return all(
             torch.equal(a.cpu(), b) if a.dtype == torch.int32

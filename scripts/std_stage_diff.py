@@ -7,7 +7,7 @@ runs it on the card with every kernel wrapper's call captured
 (phase-cumsum, the seg-scan passes, star, the std DP), replays each
 captured call on its plain twin on the CPU from the same operands, and
 prints, stage by stage, how far the card's outputs lie from the twin's
-(the prefix sums against `star_cuda.sum_order_bound`, the others bit for
+(the prefix sums against `star_cuda.round_once_bound`, the others bit for
 bit), then the contig's per-bin best path scores on the card, on the CPU
 twins end to end, and on the exact engine.  It exits 1 when a stage
 departs from its twin.
@@ -123,7 +123,7 @@ def compare_stages(calls):
                 diff = torch.where(torch.isnan(g) & torch.isnan(r),
                                    torch.zeros_like(diff), diff)
                 if name == "phase_cumsum":
-                    bound = star_cuda.sum_order_bound(cargs[0].abs(), r)
+                    bound = star_cuda.round_once_bound(cargs[0].abs(), r)
                     ok = bool((diff <= bound).all())
                 else:
                     ok = bool((diff == 0).all())

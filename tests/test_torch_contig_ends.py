@@ -21,7 +21,10 @@ where the gap after a contig holds other bases).  The cases:
   at both ends, on both layouts;
 * on the card, a third contig of the mix (seed 22, call 2, contig 89 of
   4,517 bp), where a coding score 6e-5 under the scoring's threshold of
-  5.0 went over it when the prefix-sum kernels rounded every add to f32.
+  5.0 went over it when the prefix-sum kernels rounded every add to f32;
+* a fourth (seed 5368709143, call 7, contig 195 of 8,646 bp), where a
+  gene worth -0.0002 rounded to 0 in the DP's fixed point and tied a
+  node's baseline, on both routes.
 """
 
 import numpy as np
@@ -242,6 +245,31 @@ def test_motif_path_at_both_ends(runner, gcf, layout):
         _assert_nodes(runner, seq, nbt, g, NONSD, got, ends)
 
 
+@needs_bins
+@pytest.mark.parametrize("route", ["std", "mega"])
+def test_negative_gene_does_not_tie_a_baseline(runner, departed, route):
+    """A fourth contig of the mix (seed 5368709143, call 7, contig 195 of
+    8,646 bp): under bin 30 the edge gene from its first start (ndx 1) to
+    the stop at 277 is worth -0.000211 (cscore -2.719212, sscore 2.719).
+    Rounded to the DP's fixed point (1/2048) it read 0, tied the stop's
+    baseline (0, no source), won it by source index, and the chain it
+    opened raised the bin's best path to 325.048 against the exact
+    324.308.  A negative value now never rounds to 0: every bin within a
+    tenth of the margin of refcore's, on the std route and on the mega
+    route."""
+    seq, cand, geoms, nbt, std = _prep(runner, departed[3])
+    assert std == "std" and 30 in cand
+    g = geoms[11]
+    if route == "std":
+        best = runner._sweep_std([(0, b, (0, 11)) for b in cand],
+                                 {(0, 11): g})
+    else:
+        out, rows, _CP, _B = runner._sweep_mega_multi(
+            [{"ci": 0, "g": g, "rows": cand}])
+        best = [out[0, rows.index(b)] for b in cand]
+    _assert_best(runner, seq, nbt, cand, best)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -288,13 +316,34 @@ def test_card_prefix_sums_round_once_on_contig89(departed, cuda_device,
     assert len(sums) == 2                          # Cf and Cr
     for x, out in sums:
         ref = star_cuda.phase_cumsum_plain(x)
-        exact = star_cuda.phase_cumsum_plain(x, rounded=False)
-        # one f32 ulp of the f64 sum, and the f64 sums' own error
-        ulp = 2.0 * star_cuda.U * exact.abs()
-        f64 = 2.0 ** -52 * x.shape[1] * star_cuda.phase_cumsum_plain(
-            x.abs(), rounded=False)
-        assert ((out.double() - ref.double()).abs() <= ulp + f64).all()
+        bound = star_cuda.round_once_bound(x.abs(), ref)
+        assert ((out.double() - ref.double()).abs() <= bound).all()
     assert best_card.tolist() == best_cpu.tolist()
     for ci, (seq, cand, _geoms, nbt, _route) in enumerate(preps):
         _assert_best(host, seq, nbt, cand,
                      [best_card[k] for k, w in enumerate(work) if w[0] == ci])
+
+
+@needs_bins
+def test_card_negative_gene_does_not_tie_a_baseline(departed, cuda_device):
+    """Contig 195 on the card: the std and the mega DP kernels round a
+    negative gene value as their twins do, so every bin's best path
+    score is the CPU twins' on both routes."""
+    host = CudaMetaRunner(METAGENOMIC_BINS, device="cpu")
+    card = CudaMetaRunner(METAGENOMIC_BINS, device=cuda_device)
+    try:
+        _seq, cand, geoms, _nbt, _route = _prep(host, departed[3])
+        work = [(0, b, (0, 11)) for b in cand]
+        gm = {(0, 11): geoms[11]}
+        assert card._sweep_std(work, gm).tolist() \
+            == host._sweep_std(work, gm).tolist()
+        items = [{"ci": 0, "g": geoms[11], "rows": cand}]
+        got, want = card._sweep_mega_multi(items), \
+            host._sweep_mega_multi(items)
+        rows = want[1]
+        assert got[1] == rows
+        assert got[0][0, :len(rows)].tolist() \
+            == want[0][0, :len(rows)].tolist()
+    finally:
+        host.close()
+        card.close()

@@ -189,3 +189,14 @@ def test_dp_kernel_rows_with_no_valid_node(cases, cuda_device):
     for a, b in zip(got, ref):
         assert torch.equal(a.cpu(), b)
     assert (got[1][::4] == -1).all()
+
+
+def test_quant_never_rounds_a_negative_value_to_zero():
+    """The DPs' fixed point (csrc/common.cuh `quant` and its twin): round
+    half to even, but a negative value that rounds to 0 reads -1, so that
+    it cannot tie a node's baseline (0, no source)."""
+    x = torch.tensor([-0.000211, -0.5 / 2048, -1e-30, -0.0, 0.0, 0.000211,
+                      -0.00074, 1.3], dtype=torch.float32)
+    q = dp_cuda._quant(x, dp_cuda.FXS)
+    assert q.dtype == torch.int32
+    assert q.tolist() == [-1, -1, -1, 0, 0, 0, -2, 2662]

@@ -501,7 +501,7 @@ def test_wrappers_launch_on_their_tensors_card(data, two_cards, route):
     """Each wrapper of the route, given tensors on the last card while
     card 0 is current, launches there (on that card's current stream)
     and agrees with its plain twin as chip_smoke.py holds it: the prefix
-    sums within their sum-order bound, star's integers exactly and its
+    sums within their round-once bound, star's integers exactly and its
     floats to rtol 1e-6, the DPs exactly."""
     last = torch.device("cuda", two_cards - 1)
     calls = _captured_cpu_calls(data, route)
@@ -523,7 +523,7 @@ def test_wrappers_launch_on_their_tensors_card(data, two_cards, route):
         if kernel in ("dc_chain", "phase_cumsum"):
             x_abs = (args[0][:, args[1].long()] if kernel == "dc_chain"
                      else args[0]).abs()
-            bound = star_cuda.sum_order_bound(x_abs, ref)
+            bound = star_cuda.round_once_bound(x_abs, ref)
             assert ((got.cpu().double() - ref.double()).abs()
                     <= bound).all()
         elif kernel == "star":

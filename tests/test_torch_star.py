@@ -250,8 +250,8 @@ def test_per_row_star_plain_matches_reference(per_row_reference):
 @needs_bins
 def test_dc_chain_kernel_matches_plain(inputs, cuda_device):
     """Kernel against plain on the card, on the 30 kb geometry's two code
-    rows, within the kernels' sum-order bound (`star_cuda.sum_order_bound`:
-    their tiles, block scan and carry across tiles)."""
+    rows, within the kernels' round-once bound
+    (`star_cuda.round_once_bound`: one f32 ulp)."""
     table = _t(inputs["table"], cuda_device)
     before = star_cuda.LAUNCHES["dc_chain"]
     for strand in ("m6f", "m6r"):
@@ -259,7 +259,7 @@ def test_dc_chain_kernel_matches_plain(inputs, cuda_device):
         got = star_cuda.dc_phase_cumsum(table, codes)
         ref = star_cuda.dc_phase_cumsum_plain(table, codes)
         torch.cuda.synchronize()
-        bound = star_cuda.sum_order_bound(
+        bound = star_cuda.round_once_bound(
             table[:, codes.long()].abs(), ref)
         assert ((got.double() - ref.double()).abs() <= bound).all()
     assert star_cuda.LAUNCHES["dc_chain"] == before + 2
@@ -269,7 +269,7 @@ def test_dc_chain_kernel_matches_plain(inputs, cuda_device):
 @needs_bins
 def test_phase_cumsum_kernel_matches_plain(inputs, cuda_device):
     """Kernel against plain on the card, per-row looked-up dc values of
-    the 30 kb geometry's two code rows, within the kernel's sum-order
+    the 30 kb geometry's two code rows, within the kernel's round-once
     bound."""
     table = _t(inputs["table"], cuda_device)
     before = star_cuda.LAUNCHES["phase_cumsum"]
@@ -278,7 +278,7 @@ def test_phase_cumsum_kernel_matches_plain(inputs, cuda_device):
         got = star_cuda.phase_cumsum(x)
         ref = star_cuda.phase_cumsum_plain(x)
         torch.cuda.synchronize()
-        bound = star_cuda.sum_order_bound(x.abs(), ref)
+        bound = star_cuda.round_once_bound(x.abs(), ref)
         assert ((got.double() - ref.double()).abs() <= bound).all()
     assert star_cuda.LAUNCHES["phase_cumsum"] == before + 2
 
@@ -301,7 +301,7 @@ def _prefix_case(B, S, seed):
 @pytest.mark.parametrize("B", [1, 16])
 @pytest.mark.parametrize("S", EDGE_S)
 def test_dc_chain_kernel_edges(B, S, cuda_device):
-    """Every tile edge against plain, within the sum-order bound; the
+    """Every tile edge against plain, within the round-once bound; the
     codes once 16-byte aligned and once offset by one element (the
     kernel's 4-byte path)."""
     table, codes = _prefix_case(B, S, S)
@@ -313,7 +313,7 @@ def test_dc_chain_kernel_edges(B, S, cuda_device):
         ref = star_cuda.dc_phase_cumsum_plain(table, c)
         torch.cuda.synchronize()
         assert got.shape == (B, S) and torch.isfinite(got).all()
-        bound = star_cuda.sum_order_bound(
+        bound = star_cuda.round_once_bound(
             table[:, c.long()].abs(), ref)
         assert ((got.double() - ref.double()).abs() <= bound).all()
     assert star_cuda.LAUNCHES["dc_chain"] == before + 2
@@ -323,7 +323,7 @@ def test_dc_chain_kernel_edges(B, S, cuda_device):
 @pytest.mark.parametrize("B", [1, 16])
 @pytest.mark.parametrize("S", EDGE_S)
 def test_phase_cumsum_kernel_edges(B, S, cuda_device):
-    """Every tile edge against plain, within the sum-order bound (rows of
+    """Every tile edge against plain, within the round-once bound (rows of
     S % 4 != 0 take the kernel's 4-byte path)."""
     table, codes = _prefix_case(B, S, S)
     x = _t(table[:, codes[:S]], cuda_device).contiguous()
@@ -332,7 +332,7 @@ def test_phase_cumsum_kernel_edges(B, S, cuda_device):
     ref = star_cuda.phase_cumsum_plain(x)
     torch.cuda.synchronize()
     assert got.shape == (B, S) and torch.isfinite(got).all()
-    bound = star_cuda.sum_order_bound(x.abs(), ref)
+    bound = star_cuda.round_once_bound(x.abs(), ref)
     assert ((got.double() - ref.double()).abs() <= bound).all()
     assert star_cuda.LAUNCHES["phase_cumsum"] == before + 1
 
@@ -385,29 +385,36 @@ def test_prefix_kernels_are_batch_invariant(kernel, cuda_device):
 def test_prefix_chunking_covers_every_tile(B, S):
     """The launch shape the wrappers hand the kernels: every tile in one
     chunk, at most MAX_TILES_PER_BLOCK tiles a block, a grid the card
-    takes; and the depth of the kernels' sums (csrc/phase_scan.cuh)."""
+    takes."""
     tpb, chunks = star_cuda._chunking(S)
     T = -(-S // TILE)
     assert 1 <= tpb <= star_cuda.MAX_TILES_PER_BLOCK
     assert (chunks - 1) * tpb < T <= chunks * tpb
     assert chunks <= 65535
-    assert star_cuda.sum_order_depth(S) == \
-        5 * tpb + 18 + -(-chunks // star_cuda.THREADS)
 
 
-def test_sum_order_bound_holds_for_plain_f32_order():
-    """The bound's own arithmetic on the CPU: a float32 cumsum in
-    sequential order (K = 20 terms a phase) lies within the bound,
-    whose depth is at least K, and the f64 twin within u |ref|."""
+def test_round_once_bound_takes_f64_orders_and_refuses_f32_sums():
+    """The bound's own arithmetic on the CPU, over 3 x 4,096 terms: f64
+    sums in another order (chunks of 64 a phase, then the chunk totals
+    carried) rounded once lie within it, the twin itself within one
+    rounding of its f64 sum; a float32 cumsum, rounded at every add as
+    the kernels once did, leaves it."""
+    B, S = 4, 3 * 4096
     x = torch.from_numpy(np.random.default_rng(3).normal(
-        0.0, 0.5, (4, 3 * 20)).astype(np.float32))
+        0.0, 0.5, (B, S)).astype(np.float32))
     ref = star_cuda.phase_cumsum_plain(x)
-    f32 = x.reshape(4, -1, 3).cumsum(1).reshape(4, -1)
-    bound = star_cuda.sum_order_bound(x.abs(), ref)
-    assert star_cuda.sum_order_depth(60) >= 20
-    assert ((f32.double() - ref.double()).abs() <= bound).all()
+    bound = star_cuda.round_once_bound(x.abs(), ref)
+    ph = x.double().reshape(B, -1, 64, 3)
+    carry = ph.sum(2).cumsum(1) - ph.sum(2)
+    other = (ph.cumsum(2) + carry[:, :, None]).reshape(B, S).float()
+    assert not torch.equal(other.double(), star_cuda.phase_cumsum_plain(
+        x, rounded=False))
+    assert ((other.double() - ref.double()).abs() <= bound).all()
     assert ((ref.double() - star_cuda.phase_cumsum_plain(
         x, rounded=False)).abs() <= star_cuda.U * ref.double().abs()).all()
+    f32 = torch.from_numpy(np.cumsum(x.numpy().reshape(B, -1, 3), 1,
+                                     dtype=np.float32).reshape(B, S))
+    assert ((f32.double() - ref.double()).abs() > bound).any()
 
 
 @pytest.mark.cuda
