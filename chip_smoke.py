@@ -24,10 +24,13 @@ Phases, each printing one line:
    also timed at the bench pass's other mega launches; the mega DP timed
    there and held exactly equal to its twin on the 100 kb contig and on a
    geometry with no valid node.  Std route, on the first std launch of
-   the short-contig set (128 rows, 49,152 bp, 3,072 nodes): phase-cumsum
-   (both code rows), star with one geometry row per bin row, and the std
-   DP, also exactly equal with 16 rows emptied and on a launch of 40 kb
-   genome slices whose windows reach 3 chunks of 640.  The seg-scan
+   the short-contig set (its largest contigs, padded to 3,072 nodes):
+   phase-cumsum (both code rows), star with one geometry row per bin
+   row, and the std DP, also exactly equal with 16 rows emptied and on a
+   launch of 40 kb genome slices whose windows reach 3 chunks of 640;
+   then a std launch of the set at every node bucket a launch may take
+   (256-3,072 nodes) and at the smallest and largest sequence bucket,
+   every kernel call against its twin and timed.  The seg-scan
    (scoring passes 2 and 3) on both routes' scoring launches above, one
    call a launch (the four chained walks), held bit-equal to its twin and
    to a second call, and timed in a CUDA graph and on the stream;
@@ -58,7 +61,7 @@ Phases, each printing one line:
       best scores of the first call against the exact engine's, failing
       beyond a tenth of the winner margin (`CudaMetaRunner._margin`);
       then every kernel of the genome's (8, 163,840) mega launch and of
-      the short set's first std launch (16 rows) against its plain twin
+      the short set's first std launch (a contig a row) against its plain twin
       on the same inputs, within the phase 2 tolerances (the mega DP's
       twin on a CPU copy);
 4. the CLI on the card: `python -m pyrodigal_tpu_torch -i <genome> -o
@@ -1344,48 +1347,146 @@ def _captured(fn, *args):
     return calls
 
 
-def _single_kernel_checks(label, sweep, args):
-    """Every kernel call of one single-mode launch against its plain twin
-    on the same inputs: the prefix sums within their round-once bound,
-    star's pointers and integer tables exact and its floats within rtol
-    1e-6, the seg-scan bit for bit, the DPs' four outputs exactly equal.
-    The mega DP's twin runs on a CPU copy of the inputs, as the CPU tests
-    run it (on the card it would take minutes at the genome's 153 k node
-    steps).  Returns
-    {kernel: (max abs err, shape)}."""
+def _check_call(tag, name, a, got):
+    """One captured kernel call against its plain twin on the same inputs:
+    the prefix sums within their round-once bound, star's pointers and
+    integer tables exact and its floats within rtol 1e-6, the seg-scan
+    bit for bit, the DPs' four outputs exactly equal.  The mega DP's twin
+    runs on a CPU copy of the inputs, as the CPU tests run it (on the
+    card it would take minutes at the genome's 153 k node steps).
+    Returns (max abs err, shape)."""
     import torch
 
     from pyrodigal_tpu_torch.ops import dp_cuda, star_cuda
 
     mods = {"star_cuda": star_cuda, "dp_cuda": dp_cuda}
+    plain = getattr(mods[WRAPPERS[name][0]], WRAPPERS[name][2])
+    if name == "dc_chain":
+        err, _r = _bound_check(tag, got, plain(*a),
+                               a[0][:, a[1].long()].abs())
+        return err, [a[0].shape[0], a[1].shape[0]]
+    if name == "phase_cumsum":
+        err, _r = _bound_check(tag, got, plain(*a), a[0].abs())
+        return err, list(a[0].shape)
+    if name == "star":
+        err, _bits = _star_check(tag, got, plain(*a))
+        return err, list(a[4].shape)
+    if name == "seg_scan":
+        _seg_scan_equal(tag, got, plain(*a))
+        return 0.0, list(a[0].shape)
+    if name == "dp_mega":
+        ref = plain(*(x.cpu() if torch.is_tensor(x) else x for x in a))
+        got = tuple(x.cpu() for x in got)
+    else:
+        ref = plain(*a)
+    return (float(_dp_equal(tag, got, ref)),
+            list(a[7].shape if name == "dp_mega" else a[4].shape))
+
+
+def _kernel_checks(label, sweep, args):
+    """Every kernel call of one launch, `sweep(*args)`, against its plain
+    twin (`_check_call`).  Returns {kernel: (max abs err, shapes)}."""
     out = {}
     for name, a, got in _captured(sweep, *args):
-        plain = getattr(mods[WRAPPERS[name][0]], WRAPPERS[name][2])
-        tag = f"single mode, {label}: {name}"
-        if name == "dc_chain":
-            err, _r = _bound_check(tag, got, plain(*a),
-                                   a[0][:, a[1].long()].abs())
-            shape = [a[0].shape[0], a[1].shape[0]]
-        elif name == "phase_cumsum":
-            err, _r = _bound_check(tag, got, plain(*a), a[0].abs())
-            shape = list(a[0].shape)
-        elif name == "star":
-            err, _bits = _star_check(tag, got, plain(*a))
-            shape = list(a[4].shape)
-        elif name == "seg_scan":
-            _seg_scan_equal(tag, got, plain(*a))
-            err, shape = 0.0, list(a[0].shape)
-        else:
-            if name == "dp_mega":
-                ref = plain(*(x.cpu() if torch.is_tensor(x) else x
-                              for x in a))
-                got = tuple(x.cpu() for x in got)
-            else:
-                ref = plain(*a)
-            err = float(_dp_equal(tag, got, ref))
-            shape = list(a[7].shape if name == "dp_mega" else a[4].shape)
+        err, shape = _check_call(f"{label}: {name}", name, a, got)
         e0, shapes = out.get(name, (0.0, []))
         out[name] = (max(e0, err), shapes + [shape])
+    return out
+
+
+def _std_kernel_set(names):
+    """Whether `names` are a std launch's kernels: the seg-scan, star and
+    the std DP, after phase-cumsum, or dc-chain when the launch holds one
+    geometry (its rows share one code row: the fused lookup)."""
+    return names in ({"phase_cumsum", "seg_scan", "star", "dp_std"},
+                     {"dc_chain", "seg_scan", "star", "dp_std"})
+
+
+def std_rung_launches(runner, items):
+    """One std launch at every node bucket a launch may take
+    (`meta_cuda.NODE_RUNGS` below NODE_BUCKET, then NODE_BUCKET), of up to
+    four of `items` ([(ci, bin_ids, geoms)]) whose largest geometry takes
+    that rung; then one of up to eight contigs of at most SEQ_STEP bp (the
+    smallest sequence bucket), and one of the two longest (the largest
+    the items reach).  Each is the first launch `_pack_std` makes of
+    them.  Returns [(label, work, geoms)]."""
+    from pyrodigal_tpu_torch.ops import meta_cuda
+
+    def largest(it):
+        _ci, cand, geoms = it
+        gs = [geoms[runner.bins[b].training_info.translation_table]
+              for b in cand]
+        return max(g["nn"] for g in gs), max(g["slen"] for g in gs)
+
+    sized = sorted(((largest(it), it) for it in items),
+                   key=lambda x: (x[0][1], x[1][0]))
+    rungs = [r for r in meta_cuda.NODE_RUNGS if r < meta_cuda.NODE_BUCKET]
+    chosen, lo = [], 0
+    for rung in rungs + [meta_cuda.NODE_BUCKET]:
+        inside = [it for (nn, _s), it in sized if lo < nn <= rung]
+        if not inside:
+            raise AssertionError(f"no std contig takes node rung {rung}")
+        chosen.append((f"nodes {rung}", inside[-4:]))
+        lo = rung
+    chosen.append(("shortest", [it for (_n, sl), it in sized
+                                if sl <= meta_cuda.SEQ_STEP][:8]))
+    chosen.append(("longest", [it for _k, it in sized[-2:]]))
+    out = []
+    for label, its in chosen:
+        L = runner._pack_std(its)[0]
+        out.append((label, L["work"], L["geoms"]))
+    return out
+
+
+def phase_std_rungs(runner, contigs):
+    """Phase 2, std buckets: one std launch of the short-contig set at
+    every node rung and at the smallest and largest sequence bucket
+    (`std_rung_launches`), every kernel call against its plain twin
+    (`_check_call`), each kernel timed on its captured operands (the mean
+    of 10 calls; the std DP as a bare C launch), and the launch's wall
+    (the mean of 5 `_sweep_std` calls).  Returns the launches' records."""
+    from pyrodigal_tpu_torch.ops import dp_cuda, star_cuda
+    from pyrodigal_tpu_torch.sequence import Sequence
+
+    mods = {"star_cuda": star_cuda, "dp_cuda": dp_cuda}
+    preps = list(runner.pool.map(
+        lambda s: runner._prepare_contig(Sequence(s)),
+        [s for _n, s in contigs]))
+    items = [(ci, p[0], p[1]) for ci, p in enumerate(preps)
+             if p[3] == "std" and p[0]]
+    out = []
+    for label, work, geoms in std_rung_launches(runner, items):
+        packed, bin_idx, _gidx, _nonsd = runner._std_inputs(work, geoms)
+        rec = {"launch": label, "rows": len(work), "geoms": len(geoms),
+               "shape": [len(bin_idx), packed["n32"].shape[2],
+                         packed["digits"].shape[1]], "kernels": {}}
+        calls = _captured(runner._sweep_std, work, geoms)
+        if not _std_kernel_set({c[0] for c in calls}):
+            raise AssertionError(f"std launch, {label}: kernels "
+                                 f"{sorted({c[0] for c in calls})}")
+        for name, a, got in calls:
+            err, shape = _check_call(f"std launch, {label}: {name}", name,
+                                     a, got)
+            if name == "dp_std":
+                ms = _launch_ms("dp_std_launch", a, tuple(a[4].shape), 10)
+            else:
+                fn = getattr(mods[WRAPPERS[name][0]], WRAPPERS[name][1])
+                ms = _time_ms(lambda: fn(*a), 10)
+            k = rec["kernels"].setdefault(name, {"shape": shape, "ms": 0.0,
+                                                 "max_abs_err": 0.0})
+            k["ms"] += ms
+            k["max_abs_err"] = max(k["max_abs_err"], err)
+        rec["wall_ms"] = _time_ms(lambda: runner._sweep_std(work, geoms), 5)
+        out.append(rec)
+    print("phase 2 kernels, std buckets (a launch at every node rung and "
+          "at the smallest and largest sequence bucket; (rows, nodes, bp); "
+          "every kernel call against its plain twin): " + "; ".join(
+              f"{r['launch']} {r['shape']} ({r['rows']} work items): "
+              + ", ".join(f"{k} {v['ms']:.4f} ms (err {v['max_abs_err']:.3g})"
+                          for k, v in r["kernels"].items())
+              + f", launch wall {r['wall_ms']:.3f} ms" for r in out)
+          + "; a prefix sum the sum of its two calls, kernels the mean of 10 "
+          "calls", flush=True)
     return out
 
 
@@ -1396,7 +1497,7 @@ def phase_single(contigs):
     against the exact engine's (`CudaMetaRunner.single_drift`); the run
     fails beyond a tenth of the winner margin.  Then every kernel of the
     genome's (8, 163,840) mega launch and of the short set's first std
-    launch (16 rows, one contig each) against its plain twin."""
+    launch (one contig a row) against its plain twin."""
     import pyrodigal_tpu_torch
 
     rec = _records(GENOME)[0]
@@ -1444,7 +1545,7 @@ def phase_single(contigs):
             runner.route_counts[k] = 0
         prep_s, launch_s, n_launch, finish_s, work = \
             _single_stages(runner, seqs, route)
-        checks = _single_kernel_checks(label, *work[0])
+        checks = _kernel_checks(f"single mode, {label}", *work[0])
         if set(checks) != set(kernels):
             raise AssertionError(f"single mode, {label}: kernels checked "
                                  f"{sorted(checks)}")
@@ -1682,6 +1783,7 @@ def main():
     runner = CudaMetaRunner(METAGENOMIC_BINS, device="cuda:0")
     kernels = phase_kernels(runner)
     std_kernels, star_per_row, seg_std = phase_kernels_std(runner, contigs)
+    std_rungs = phase_std_rungs(runner, contigs)
     runner.close()
     kernels += std_kernels
     next(k for k in kernels if k["name"] == "star").update(star_per_row)
@@ -1718,6 +1820,7 @@ def main():
         if mod in sys.modules:
             raise RuntimeError(f"{mod} was imported: the port stands alone")
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"std_rungs": std_rungs}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -5,9 +5,11 @@ extraction, geometry) runs on a thread pool and picks each contig's
 route as the JAX package does:
 
 * "std": contigs of at most SEQ_BUCKET bp whose geometries fit the std
-  buckets.  Launches hold up to BATCH work items, one (contig, bin) per
-  row with its own geometry (`score_device.score_dp_launch`: scoring,
-  the phase-cumsum, star and std-DP kernels);
+  buckets.  Launches hold one (contig, bin) work item per row with its
+  own geometry (`score_device.score_dp_launch`: scoring, the
+  phase-cumsum, star and std-DP kernels), contigs largest first, each
+  launch padded to node and sequence buckets of its own
+  (`std_buckets`);
 * "mega": longer contigs, and short ones that overflow a std bucket,
   packed end to end into launches whose rows are the union of their
   candidate bins (`score_device.score_dp_launch_mega`: scoring, the
@@ -55,19 +57,38 @@ from . import dp_cuda
 from . import score_device as sd
 
 # std route (the JAX package's TpuMetaRunner defaults): node and sequence
-# buckets, DP window and windows per node (the std DP kernel's), work
-# items per launch, the row multiple a launch is rounded to, and
-# geometries per launch
+# buckets, the largest a contig on the route may fill; DP window and
+# windows per node (the std DP kernel's); the row multiple a launch is
+# rounded to
 NODE_BUCKET = 3072
 SEQ_BUCKET = 49152
 WINDOW = dp_cuda.W_STD
 FIXED_CHUNKS = dp_cuda.FIXED_CHUNKS
-BATCH = 128
 BLOCK = 16
-MAX_GEOMS = 16
+# a std launch's own buckets (`std_buckets`): node rungs below NODE_BUCKET,
+# and the step its sequence bucket is rounded up to
+NODE_RUNGS = (256, 512, 768, 1024, 1536, 2048)
+SEQ_STEP = 1024
+# what a std launch may hold, padded: node-rows and sequence-rows (128 rows
+# at NODE_BUCKET and SEQ_BUCKET), and rows (the per-row bin-table gathers
+# of the scoring, (rows, 16, 4,096) f32, stay under 0.3 GB each)
+NODE_ROW_BUDGET = 128 * 3072
+SEQ_ROW_BUDGET = 128 * 49152
+MAX_ROWS = 1024
 # star scan span, in node indices (reference: lib.pyx:2279-2329)
 RELK = 32
 PREP_THREADS = 8
+
+
+def std_buckets(nodes, slen):
+    """(node bucket, sequence bucket) of a std launch whose largest
+    geometry holds `nodes` nodes and whose longest contig `slen` bp: the
+    smallest of NODE_RUNGS and NODE_BUCKET that holds the nodes, and the
+    length rounded up to SEQ_STEP, at most SEQ_BUCKET.  Padding is
+    invalid nodes and zero digits, so no row's scores depend on them."""
+    n = next((r for r in NODE_RUNGS if nodes <= r < NODE_BUCKET),
+             NODE_BUCKET)
+    return n, min(max(-(-slen // SEQ_STEP), 1) * SEQ_STEP, SEQ_BUCKET)
 
 
 class CudaMetaRunner:
@@ -321,19 +342,37 @@ class CudaMetaRunner:
         return best, rows, CP, B
 
     def _pack_std(self, items):
-        """Std launches from [(ci, bin_ids, geoms)] in contig order
-        (meta_tpu.py:561-585): a contig's bins never split across
-        launches, and a launch closes when its work would pass BATCH rows
-        or its geometries MAX_GEOMS.  Each launch is {"work": [(ci, bin,
-        key)], "geoms": {key: geometry}}, key = (ci, translation table)."""
-        launches, work, geoms = [], [], {}
+        """Std launches from [(ci, bin_ids, geoms)]: contigs largest first
+        (by their largest geometry's nodes, then contig index), each
+        launch padded to its own buckets (`std_buckets`).  A contig's bins
+        never split across launches, and a launch closes when the next
+        contig would take its rows past MAX_ROWS, or its padded node-rows
+        or sequence-rows past NODE_ROW_BUDGET or SEQ_ROW_BUDGET.  Rows
+        count as one card pads them, to a multiple of BLOCK, so that what
+        a launch holds does not depend on the mesh: a mesh pads them
+        further, to whole blocks a shard, and splits them over its
+        devices.  Each launch is {"work": [(ci, bin, key)], "geoms": {key:
+        geometry}}, key = (ci, translation table)."""
+        sized = []
         for ci, cand, contig_geoms in items:
-            tts = {self.bins[b].training_info.translation_table
-                   for b in cand}
-            if work and (len(work) + len(cand) > BATCH
-                         or len(geoms) + len(tts) > MAX_GEOMS):
+            gs = [contig_geoms[tt] for tt in
+                  {self.bins[b].training_info.translation_table
+                   for b in cand}]
+            sized.append((max(g["nn"] for g in gs),
+                          max(g["slen"] for g in gs), ci, cand,
+                          contig_geoms))
+        sized.sort(key=lambda it: (-it[0], it[2]))
+        launches, work, geoms = [], [], {}
+        nodes = slen = 0
+        for c_nodes, c_slen, ci, cand, contig_geoms in sized:
+            rows = -(-(len(work) + len(cand)) // BLOCK) * BLOCK
+            nb, sb = std_buckets(max(nodes, c_nodes), max(slen, c_slen))
+            if work and (rows > MAX_ROWS or rows * nb > NODE_ROW_BUDGET
+                         or rows * sb > SEQ_ROW_BUDGET):
                 launches.append({"work": work, "geoms": geoms})
                 work, geoms = [], {}
+                nodes = slen = 0
+            nodes, slen = max(nodes, c_nodes), max(slen, c_slen)
             for b in cand:
                 key = (ci, self.bins[b].training_info.translation_table)
                 geoms.setdefault(key, contig_geoms[key[1]])
@@ -344,19 +383,22 @@ class CudaMetaRunner:
 
     def _std_inputs(self, work, geoms):
         """Host inputs of one std launch: (packed geometry, bin_idx, gidx,
-        has_nonsd), numpy.  Rows are the work items, then pads on
+        has_nonsd), numpy.  Geometries are padded to the launch's own
+        buckets (`std_buckets`); rows are the work items, then pads on
         geometry 0 and bin 0 (ignored) up to a multiple of BLOCK, or of
         BLOCK x the mesh size, so that every shard takes whole blocks.
-        The JAX package pads every launch to BATCH rows so that XLA
-        compiles one shape (meta_tpu.py:214-216); a CUDA launch compiles
-        nothing per shape, and no row's result depends on another row, so
-        the rounding changes the launch's shape and no result."""
+        The JAX package pads every launch to one shape so that XLA
+        compiles it once (meta_tpu.py:214-216); a CUDA launch compiles
+        nothing per shape, and no row's result depends on another row or
+        on the padding, so the shape changes no result."""
         keys = list(geoms)
         gmap = {k: i for i, k in enumerate(keys)}
         multiple = BLOCK * self.mesh.size
         BT = -(-len(work) // multiple) * multiple
+        nb, sb = std_buckets(max(g["nn"] for g in geoms.values()),
+                             max(g["slen"] for g in geoms.values()))
         packed = sd.pack_geometries([geoms[k] for k in keys], len(keys),
-                                    NODE_BUCKET, SEQ_BUCKET)
+                                    nb, sb)
         bin_idx = np.zeros(BT, np.int64)
         gidx = np.zeros(BT, np.int64)
         for k, (_ci, b, key) in enumerate(work):
@@ -373,13 +415,15 @@ class CudaMetaRunner:
             packed, bin_idx, gidx, nonsd = self._std_inputs(work, geoms)
         sp = tracing.current("launch")
         if sp:
+            nb = packed["n32"].shape[2]
             sp.set(route="std", items=len(work),
                    contigs=len({ci for ci, _b, _key in work}), rows=len(work),
-                   rows_bucket=len(bin_idx),
+                   rows_bucket=len(bin_idx), node_bucket=nb,
+                   seq_bucket=packed["digits"].shape[1],
                    nodes=sum(g["nn"] for g in geoms.values()),
-                   nodes_bucket=len(geoms) * NODE_BUCKET,
+                   nodes_bucket=len(geoms) * nb,
                    node_rows=sum(geoms[key]["nn"] for _ci, _b, key in work),
-                   node_rows_bucket=len(bin_idx) * NODE_BUCKET)
+                   node_rows_bucket=len(bin_idx) * nb)
         return sharded_score_dp_launch(
             self.mesh, self.shard_tables, packed, bin_idx, gidx,
             is_meta=self.is_meta, closed=self.closed, has_nonsd=nonsd,

@@ -15,7 +15,10 @@ line, then one JSON line of what the run held:
   device's idle time split by the program span open in it
   (`genebench.progspans.attribute_idle`); the stretch's wall time split
   the same way; and the window's wall per Mbp against the benchmark's
-  spans per Mbp; each call's bp, wall seconds and routes;
+  spans per Mbp; each call's bp, wall seconds and routes; each launch
+  in order: its start after its call's, its seconds and those of its
+  `launch.pack`, `launch.score` and `launch.wait` children, its route,
+  rows, padded rows and buckets;
 * with `--tracing on`, the program's tracing is on for the whole run
   (`pyrodigal_tpu_torch.tracing.enable()`), so that a `--trace 0` run
   gives its cost against a run without it on the same seed.
@@ -58,6 +61,33 @@ def wall_split(st, t0, t1):
         out.items(), key=lambda kv: -kv[1])}
 
 
+def launches(st):
+    """Each `launch` span of the stretch in order of start: offset after
+    its call's start, seconds, its children's seconds by name, and its
+    shape attributes."""
+    calls = {c.id: c for c in st.calls}
+    kids = {}
+    for s in st.spans:
+        kids.setdefault(s.parent, []).append(s)
+
+    def below(sp):
+        for k in kids.get(sp.id, []):
+            yield k
+            yield from below(k)
+
+    out = []
+    for sp in sorted(st.named("launch"), key=lambda s: s.start):
+        parts = {}
+        for k in below(sp):
+            parts[k.name] = parts.get(k.name, 0.0) + (k.end - k.start) * 1e-9
+        out.append({"at_s": (sp.start - calls[sp.call].start) * 1e-9,
+                    "s": (sp.end - sp.start) * 1e-9, **parts,
+                    **{a: sp.attrs.get(a) for a in (
+                        "route", "contigs", "rows", "rows_bucket",
+                        "node_bucket", "seq_bucket", "nodes_bucket")}})
+    return out
+
+
 def report(run):
     from genebench import progspans
 
@@ -84,6 +114,7 @@ def report(run):
                                 [s.attrs.get("route") for s in st.named("prep")
                                  if s.call == c.id]] for c in st.calls]},
         "pairs_thread_s": pairs,
+        "launches": launches(st),
         "idle_s": dict(sorted(idle.items(), key=lambda kv: -kv[1])),
         "wall_s": wall_split(st, int(c0 * 1e9), int(c1 * 1e9)),
         "window": {"wall_s_per_mbp": run.window_s / window_mbp,

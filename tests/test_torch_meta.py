@@ -365,9 +365,11 @@ def test_std_route_option_variants(data, kw):
 
 
 @needs_bins
-def test_many_tiny_contigs_batch(data):
+def test_many_tiny_contigs_batch(data, monkeypatch):
     """Many tiny or odd contigs (empty, all-N, short, normal) over several
-    std launches keep launch packing, row mapping and num_seq straight."""
+    std launches keep launch packing, row mapping and num_seq straight
+    (the node-row budget lowered, so that they take several)."""
+    monkeypatch.setattr(meta_cuda, "NODE_ROW_BUDGET", 128 * 256)
     base = list(parse(data("SRR492066.fna.gz")))[0].seq
     seqs = []
     for k in range(40):
@@ -466,3 +468,185 @@ def test_best_scores_match_jax_std_launch(data):
         assert diff <= 0.1 * CudaMetaRunner._margin(ref), work[k]
         worst = max(worst, diff / abs(ref))
     assert worst < 1e-4
+
+
+# -- the std packer: launches sized by their contents -------------------------
+
+SHORT_SEED = 2_718_281_829
+
+
+@pytest.fixture(scope="module")
+def short_call():
+    """Call 0 of the benchmark's short-read assembly mix (512 contigs,
+    about 2.5 Mbp), prepped: [(ci, bin_ids, geoms)] of its std contigs."""
+    import concurrent.futures
+
+    from genebench import generate
+
+    call = generate.make(SHORT_SEED, generate.load_mix("short_contigs"))[0]
+    runner = _runner()
+    try:
+        with concurrent.futures.ThreadPoolExecutor(4) as ex:
+            preps = list(ex.map(
+                lambda s: runner._prepare_contig(Sequence(s[1])), call))
+    finally:
+        runner.close()
+    return [(ci, cand, geoms) for ci, (cand, geoms, _nbt, route)
+            in enumerate(preps) if route == "std" and cand]
+
+
+def _largest(runner, cand, geoms):
+    """(nodes, bp) of the largest geometry a contig's bins use."""
+    gs = [geoms[runner.bins[b].training_info.translation_table]
+          for b in cand]
+    return max(g["nn"] for g in gs), max(g["slen"] for g in gs)
+
+
+@needs_bins
+def test_std_packer_keeps_a_contigs_bins_in_one_launch(short_call):
+    runner = _runner()
+    launches = runner._pack_std(short_call)
+    runner.close()
+    geoms_of = {ci: geoms for ci, _cand, geoms in short_call}
+    seen, bins = {}, {}
+    for k, L in enumerate(launches):
+        for ci, b, key in L["work"]:
+            assert seen.setdefault(ci, k) == k, ci
+            assert L["geoms"][key] is geoms_of[ci][key[1]]
+            bins.setdefault(ci, []).append(b)
+    assert bins == {ci: list(cand) for ci, cand, _g in short_call}
+
+
+@needs_bins
+@pytest.mark.parametrize("shards", [1, 3])
+def test_std_launches_stay_within_their_budgets(short_call, shards):
+    """No launch passes 1,024 rows, 128 x 3,072 padded node-rows or 128 x
+    49,152 padded sequence-rows on one card; over a mesh of 3 shards the
+    launches hold the same work, padded to whole blocks a shard."""
+    from pyrodigal_tpu_torch.parallel import make_mesh
+
+    one = _runner()
+    runner = _runner(mesh=make_mesh(devices=["cpu"] * shards))
+    launches = runner._pack_std(short_call)
+    assert [L["work"] for L in launches] \
+        == [L["work"] for L in one._pack_std(short_call)]
+    one.close()
+    runner.close()
+    assert meta_cuda.MAX_ROWS == 1024
+    assert meta_cuda.NODE_ROW_BUDGET == 393_216
+    assert meta_cuda.SEQ_ROW_BUDGET == 6_291_456
+    for L in launches:
+        packed, bin_idx, _gidx, _nonsd = runner._std_inputs(L["work"],
+                                                            L["geoms"])
+        n, S = packed["n32"].shape[2], packed["digits"].shape[1]
+        BT = -(-len(L["work"]) // meta_cuda.BLOCK) * meta_cuda.BLOCK
+        assert len(bin_idx) == -(-BT // (16 * shards)) * 16 * shards
+        assert BT <= 1024 and BT * n <= 393_216 and BT * S <= 6_291_456
+
+
+@needs_bins
+def test_std_launch_buckets_are_the_smallest_rungs(short_call):
+    """Each launch's node bucket is the smallest rung that holds its
+    largest geometry, and its sequence bucket its longest contig rounded
+    up to 1,024 bp; the short call's launches take six or more rungs."""
+    ladder = [256, 512, 768, 1024, 1536, 2048, 3072]
+    runner = _runner()
+    rungs = set()
+    for L in runner._pack_std(short_call):
+        packed, *_ = runner._std_inputs(L["work"], L["geoms"])
+        n, S = packed["n32"].shape[2], packed["digits"].shape[1]
+        nn = max(g["nn"] for g in L["geoms"].values())
+        slen = max(g["slen"] for g in L["geoms"].values())
+        assert n == min(r for r in ladder if r >= nn)
+        assert S == min(-(-slen // 1024) * 1024, 49_152)
+        rungs.add(n)
+    runner.close()
+    assert len(rungs) >= 6, rungs
+
+
+@needs_bins
+def test_std_packer_orders_largest_first(short_call):
+    """Contigs go out largest first (by their largest geometry's nodes,
+    ties by contig index), whatever order they came in."""
+    import random
+
+    runner = _runner()
+    launches = runner._pack_std(short_call)
+    shuffled = list(short_call)
+    random.Random(7).shuffle(shuffled)
+    again = runner._pack_std(shuffled)
+    runner.close()
+    order = list(dict.fromkeys(ci for L in launches
+                               for ci, _b, _k in L["work"]))
+    by = {ci: _largest(runner, cand, geoms)[0]
+          for ci, cand, geoms in short_call}
+    assert order == sorted(by, key=lambda ci: (-by[ci], ci))
+    assert [L["work"] for L in again] == [L["work"] for L in launches]
+
+
+@needs_bins
+def test_std_packer_fills_a_short_assembly_call(short_call):
+    """The 511 std contigs of a short-read assembly call take at most 12
+    launches, their node-rows at least 45% of the padded ones (56
+    launches at 9% with every launch 128 rows of 3,072 nodes)."""
+    runner = _runner()
+    launches = runner._pack_std(short_call)
+    real = padded = 0
+    for L in launches:
+        _packed, bin_idx, _g, _n = runner._std_inputs(L["work"], L["geoms"])
+        n = _packed["n32"].shape[2]
+        real += sum(L["geoms"][key]["nn"] for _ci, _b, key in L["work"])
+        padded += len(bin_idx) * n
+    runner.close()
+    assert len(short_call) >= 500
+    assert len(launches) <= 12
+    assert 100.0 * real / padded >= 45.0
+
+
+@needs_bins
+def test_std_launches_at_several_rungs_match_one_top_launch(data,
+                                                             monkeypatch):
+    """Four contigs whose largest geometries take node rungs 256, 512,
+    768 and 1,536, each launch of its own (rows capped at 16): the genes
+    are refcore's, and every (contig, bin) best score lies within a tenth
+    of the margin of the one the contig gets in a single launch at the
+    top buckets (3,072 nodes, 49,152 bp)."""
+    srr = list(parse(data("SRR492066.fna.gz")))[0].seq
+    seqs = [srr[:3000], srr[9000:23000], srr[20000:40000],
+            list(parse(data("KK037166.fna.gz")))[0].seq]
+    p = GeneFinder(meta=True, backend="refcore")
+    anchor = [p.find_genes(s) for s in seqs]
+    monkeypatch.setattr(meta_cuda, "MAX_ROWS", 16)
+    runner = _runner()
+    launched = []
+    sweep = runner._sweep_std
+
+    def record(work, geoms):
+        best = sweep(work, geoms)
+        packed, *_ = runner._std_inputs(work, geoms)
+        launched.append((packed["n32"].shape[2], work, best))
+        return best
+    monkeypatch.setattr(runner, "_sweep_std", record)
+    outs = runner.find_genes_batch(seqs)
+    assert runner.route_counts == {"std": 4, "mega": 0, "c": 0}
+    for a, b in zip(anchor, outs):
+        _assert_same_genes(a, b)
+    assert sorted(n for n, _w, _b in launched) == [256, 512, 768, 1536]
+
+    monkeypatch.setattr(meta_cuda, "MAX_ROWS", 1024)
+    monkeypatch.setattr(meta_cuda, "NODE_RUNGS", ())
+    monkeypatch.setattr(meta_cuda, "SEQ_STEP", meta_cuda.SEQ_BUCKET)
+    items = []
+    for ci, s in enumerate(seqs):
+        cand, geoms, _nbt, _route = runner._prepare_contig(Sequence(s))
+        items.append((ci, cand, geoms))
+    (top,) = runner._pack_std(items)
+    top_best = sweep(top["work"], top["geoms"])
+    runner.close()
+    ref = {(ci, b): float(top_best[k])
+           for k, (ci, b, _key) in enumerate(top["work"])}
+    got = {(ci, b): float(best[k]) for _n, work, best in launched
+           for k, (ci, b, _key) in enumerate(work)}
+    assert got.keys() == ref.keys()
+    for key, r in ref.items():
+        assert abs(got[key] - r) <= 0.1 * CudaMetaRunner._margin(r), key

@@ -121,7 +121,10 @@ def test_enabled_spans_form_one_tree_a_call(srr):
     assert launch.attrs["node_rows"] == sum(
         p.attrs["nodes"][tts[b]] for p, c in zip(preps, cands) for b in c)
     assert launch.attrs["node_rows_bucket"] == \
-        launch.attrs["rows_bucket"] * meta_cuda.NODE_BUCKET
+        launch.attrs["rows_bucket"] * launch.attrs["node_bucket"]
+    assert (launch.attrs["node_bucket"], launch.attrs["seq_bucket"]) == \
+        meta_cuda.std_buckets(max(p.attrs["nodes"][tts[b]] for p, c in
+                                  zip(preps, cands) for b in c), 8000)
     assert {s.attrs["contig"] for s in _named("finish")} == {0, 1}
     assert len(_named("finish.rerun")) == sum(
         s.attrs["bins"] for s in _named("finish"))
