@@ -48,27 +48,10 @@ Phases, each printing one line:
       contig, route counts (no "c"), launch counters, Mbp/s and contigs/s
       of a first and a warm call, and the drift of a std launch's best
       scores on 20 contigs;
-   c. single mode, `pyrodigal_tpu_torch.GeneFinder(backend="cuda")`:
-      trained on the genome (timed; the exact C engine, as in the
-      reference), then `find_genes` on the genome (the mega route) and
-      `find_genes_batch` on the short-contig set (the std route), each
-      with the launch counters set to 0 just before it and read just
-      after: GFF, nucleotide and protein FASTA and start-score bytes
-      against the exact C engine's single mode for every contig, Mbp/s
-      of a first and a warm call beside refcore's single-mode wall time
-      on the same input (one thread and eight), each stage alone (host
-      prep, the launches, exact finishing), and the device's one-row
-      best scores of the first call against the exact engine's, failing
-      beyond a tenth of the winner margin (`CudaMetaRunner._margin`);
-      then every kernel of the genome's (8, 163,840) mega launch and of
-      the short set's first std launch (a contig a row) against its plain twin
-      on the same inputs, within the phase 2 tolerances (the mega DP's
-      twin on a CPU copy);
-4. the CLI on the card: `python -m pyrodigal_tpu_torch -i <genome> -o
-   -a -d -s` with the default backend against `--backend refcore`, the
-   same on the short-contig set (one launch a contig), and with `-p
-   meta` on MIIJ01000039: every output's bytes equal, both exit codes
-   0;
+4. the CLI on the card: `python -m pyrodigal_tpu_torch -i
+   MIIJ01000039 -p meta -o -a -d -s` with the default backend against
+   `--backend refcore`: every output's bytes equal, both exit codes 0
+   (single mode runs the exact C engine on both backends);
 5. the mesh: `CudaMetaRunner(..., mesh=make_mesh(...))` over every card,
    or two shards on cuda:0 when there is one card, on the bench set and
    the short-contig set, each with the launch counters set to 0 just
@@ -1254,63 +1237,6 @@ def phase_end_to_end_std(contigs):
     return r
 
 
-def _refcore_single(tinf, seqs, num_seq, threads):
-    """The exact C engine's single mode on `seqs`, numbered from
-    `num_seq` as one finder's calls number them, on `threads` threads;
-    returns (genes, wall seconds)."""
-    import pyrodigal_tpu_torch
-
-    def one(i):
-        finder = pyrodigal_tpu_torch.GeneFinder(training_info=tinf,
-                                                backend="refcore")
-        finder._num_seq = num_seq + i
-        return finder.find_genes(seqs[i])
-
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(threads) as ex:
-        out = list(ex.map(one, range(len(seqs))))
-    return out, time.perf_counter() - t0
-
-
-def _single_stages(runner, seqs, route):
-    """Each stage of a single-mode call alone, on the runner's pools: the
-    host prep of every contig, the device launches one after another (the
-    genome's mega launch, or the std launches of the std-route contigs),
-    and the exact engine's finishing of every contig.  Returns (prep s,
-    launches s, launches, finishing s, the launches' work: [(sweep,
-    args)])."""
-    import torch
-
-    from pyrodigal_tpu_torch.sequence import Sequence
-
-    contigs = [Sequence(s) for s in seqs]
-    preps, prep_s = _timed_call(
-        lambda: list(runner.pool.map(runner._prepare_contig, contigs)))
-    if route == "mega":
-        _c, geoms, _nbt, _r = preps[0]
-        work = [(runner._sweep_mega_multi,
-                 ([{"ci": 0, "g": next(iter(geoms.values())),
-                    "rows": [0]}],))]
-    else:
-        work = [(runner._sweep_std, (L["work"], L["geoms"]))
-                for L in runner._pack_std(
-                    [(ci, p[0], p[1]) for ci, p in enumerate(preps)
-                     if p[3] == "std"])]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for sweep, args in work:
-        sweep(*args)
-    torch.cuda.synchronize()
-    launch_s = time.perf_counter() - t0
-
-    def finish(ci):
-        return runner._produce_single(contigs[ci], 1, preps[ci][2])
-
-    _f, finish_s = _timed_call(
-        lambda: list(runner.pool.map(finish, range(len(contigs)))))
-    return prep_s, launch_s, len(work), finish_s, work
-
-
 # kernel -> (module, wrapper, plain twin)
 WRAPPERS = {
     "dc_chain": ("star_cuda", "dc_phase_cumsum", "dc_phase_cumsum_plain"),
@@ -1381,17 +1307,6 @@ def _check_call(tag, name, a, got):
         ref = plain(*a)
     return (float(_dp_equal(tag, got, ref)),
             list(a[7].shape if name == "dp_mega" else a[4].shape))
-
-
-def _kernel_checks(label, sweep, args):
-    """Every kernel call of one launch, `sweep(*args)`, against its plain
-    twin (`_check_call`).  Returns {kernel: (max abs err, shapes)}."""
-    out = {}
-    for name, a, got in _captured(sweep, *args):
-        err, shape = _check_call(f"{label}: {name}", name, a, got)
-        e0, shapes = out.get(name, (0.0, []))
-        out[name] = (max(e0, err), shapes + [shape])
-    return out
 
 
 def _std_kernel_set(names):
@@ -1490,147 +1405,46 @@ def phase_std_rungs(runner, contigs):
     return out
 
 
-def phase_single(contigs):
-    """Phase 3c: single mode on the card, trained on the genome; the
-    genome alone (mega route), then the short-contig set in one call
-    (std route).  Each call's launches record their one-row best scores
-    against the exact engine's (`CudaMetaRunner.single_drift`); the run
-    fails beyond a tenth of the winner margin.  Then every kernel of the
-    genome's (8, 163,840) mega launch and of the short set's first std
-    launch (one contig a row) against its plain twin."""
-    import pyrodigal_tpu_torch
-
-    rec = _records(GENOME)[0]
-    finder = pyrodigal_tpu_torch.GeneFinder(backend="cuda")
-    tinf, train_s = _timed_call(finder.train, rec.seq)
-    out = {}
-    paths = (("genome", [(rec.id, rec.seq)], MEGA_KERNELS, "mega"),
-             ("short set", contigs, STD_KERNELS, "std"))
-    num_seq = 1
-    for label, named, kernels, route in paths:
-        seqs = [s for _n, s in named]
-
-        def call():
-            if len(seqs) == 1:
-                return [finder.find_genes(seqs[0])]
-            return finder.find_genes_batch(seqs)
-
-        if finder._single_runner is not None:
-            finder._single_runner.single_drift.update(
-                pairs=0, margin_ratio=0.0, relative=0.0)
-        _zero_counts()
-        got, wall = _timed_call(call)
-        launches = _counts()
-        runner = finder._single_runner
-        routes = dict(runner.route_counts)
-        drift = dict(runner.single_drift)
-        if min(launches[k] for k in kernels) <= 0:
-            raise AssertionError(f"single mode, {label}: a kernel was not "
-                                 f"launched: {launches}")
-        if routes["c"] or routes[route] <= 0:
-            raise AssertionError(f"single mode, {label}: routes {routes}")
-        if [g._num_seq for g in got] != list(range(num_seq,
-                                                   num_seq + len(seqs))):
-            raise AssertionError(f"single mode, {label}: numbering")
-        if drift["pairs"] <= 0 or drift["margin_ratio"] > 1.0:
-            raise AssertionError(f"single mode, {label}: device best scores "
-                                 f"beyond a tenth of the winner margin: "
-                                 f"{drift}")
-        _warm, warm = _timed_call(call)
-        ref, ref_1 = _refcore_single(tinf, seqs, num_seq, 1)
-        _ref, ref_8 = _refcore_single(tinf, seqs, num_seq, 8)
-        _bytes_equal(named, got, ref, scores=True)
-        num_seq += 2 * len(seqs)
-        for k in routes:
-            runner.route_counts[k] = 0
-        prep_s, launch_s, n_launch, finish_s, work = \
-            _single_stages(runner, seqs, route)
-        checks = _kernel_checks(f"single mode, {label}", *work[0])
-        if set(checks) != set(kernels):
-            raise AssertionError(f"single mode, {label}: kernels checked "
-                                 f"{sorted(checks)}")
-        out[label] = {"launches": launches, "routes": routes,
-                      "bp": sum(len(s) for s in seqs),
-                      "genes": sum(len(g) for g in got), "wall": wall,
-                      "warm": warm, "refcore_1": ref_1, "refcore_8": ref_8,
-                      "prep": prep_s, "launch": launch_s,
-                      "n_launch": n_launch, "finish": finish_s,
-                      "drift": drift, "checks": checks}
-    print(f"phase 3c single mode: trained on the genome in {train_s:.3f} s "
-          f"(uses_sd {bool(tinf.uses_sd)}); " + "; ".join(
-              f"{label}: {r['bp']} bp, {r['genes']} genes, first call "
-              f"{r['wall']:.3f} s = {r['bp'] / r['wall'] / 1e6:.4f} Mbp/s, "
-              f"warm {r['warm']:.3f} s = {r['bp'] / r['warm'] / 1e6:.4f} "
-              f"Mbp/s; refcore single mode {r['refcore_1']:.3f} s on one "
-              f"thread = {r['bp'] / r['refcore_1'] / 1e6:.4f} Mbp/s, "
-              f"{r['refcore_8']:.3f} s on 8; stages alone: host prep "
-              f"{r['prep']:.3f} s on the pool, {r['n_launch']} {route} "
-              f"launch(es) {r['launch']:.3f} s one after another, exact "
-              f"finishing {r['finish']:.3f} s on the pool; routes "
-              f"{r['routes']}; launches {r['launches']}; one-row device "
-              f"best scores vs exact ({r['drift']['pairs']} contigs, first "
-              f"call): worst |diff| / (0.1 x margin) "
-              f"{r['drift']['margin_ratio']:.3g} (limit 1), max relative "
-              f"{r['drift']['relative']:.3g}; kernels against their plain "
-              f"twins on the first launch's inputs: " + ", ".join(
-                  f"{k} {v[1][0]} max abs err {v[0]:.3g}"
-                  for k, v in sorted(r["checks"].items()))
-              for (label, _n, _k, route), r in zip(paths, out.values()))
-          + "; GFF/FNA/FAA and start-score bytes equal to refcore single "
-          "mode for every contig", flush=True)
-    finder._single_runner.close()
-    return out["genome"], out["short set"]
-
-
-def phase_cli(contigs):
-    """Phase 4: the port's CLI on the card, the default backend against
-    `--backend refcore`: single mode on the genome and on the short-contig
-    set (one `find_genes` call, and so one launch, a contig), meta mode on
-    MIIJ01000039; every output file byte-equal."""
+def phase_cli():
+    """Phase 4: the port's CLI on the card in meta mode on MIIJ01000039,
+    the default backend against `--backend refcore`; every output file
+    byte-equal."""
     import tempfile
 
     env = dict(os.environ, PYTHONPATH=ROOT)
-    report = []
+    path = os.path.join(DATA, "MIIJ01000039.fna.gz")
+    files, report = {}, []
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
-        short = os.path.join(tmp, "short.fna")
-        with open(short, "w") as f:
-            f.writelines(f">{name}\n{seq}\n" for name, seq in contigs)
-        cases = (("single", os.path.join(DATA, GENOME)),
-                 ("single", short),
-                 ("meta", os.path.join(DATA, "MIIJ01000039.fna.gz")))
-        for case, (mode, path) in enumerate(cases):
-            files = {}
-            for backend in ("cuda", "refcore"):
-                d = os.path.join(tmp, f"{case}-{backend}")
-                os.makedirs(d)
-                outs = [os.path.join(d, f) for f in
-                        ("out.gff", "prot.faa", "nuc.fna", "starts.tsv")]
-                argv = [sys.executable, "-m", "pyrodigal_tpu_torch",
-                        "-i", path, "-p", mode,
-                        "-o", outs[0], "-a", outs[1], "-d", outs[2],
-                        "-s", outs[3]]
-                if backend == "refcore":
-                    argv += ["--backend", "refcore"]
-                t0 = time.perf_counter()
-                r = subprocess.run(argv, env=env, cwd=tmp,
-                                   capture_output=True, text=True)
-                wall = time.perf_counter() - t0
-                if r.returncode != 0:
-                    raise AssertionError(
-                        f"CLI {mode} {path} {backend}: exit {r.returncode}: "
-                        f"{r.stderr[-2000:]}")
-                files[backend] = []
-                for out in outs:
-                    with open(out, "rb") as f:
-                        files[backend].append(f.read())
-                report.append(f"{mode} {os.path.basename(path)} {backend} "
-                              f"{wall:.2f} s")
-            if files["cuda"] != files["refcore"]:
-                raise AssertionError(f"CLI {mode} {path}: bytes differ")
-            if not files["cuda"][1]:
-                raise AssertionError(f"CLI {mode} {path}: no protein "
-                                     f"written")
-    print("phase 4 CLI (python -m pyrodigal_tpu_torch -o -a -d -s, "
+        for backend in ("cuda", "refcore"):
+            d = os.path.join(tmp, backend)
+            os.makedirs(d)
+            outs = [os.path.join(d, f) for f in
+                    ("out.gff", "prot.faa", "nuc.fna", "starts.tsv")]
+            argv = [sys.executable, "-m", "pyrodigal_tpu_torch",
+                    "-i", path, "-p", "meta",
+                    "-o", outs[0], "-a", outs[1], "-d", outs[2],
+                    "-s", outs[3]]
+            if backend == "refcore":
+                argv += ["--backend", "refcore"]
+            t0 = time.perf_counter()
+            r = subprocess.run(argv, env=env, cwd=tmp,
+                               capture_output=True, text=True)
+            wall = time.perf_counter() - t0
+            if r.returncode != 0:
+                raise AssertionError(
+                    f"CLI meta {path} {backend}: exit {r.returncode}: "
+                    f"{r.stderr[-2000:]}")
+            files[backend] = []
+            for out in outs:
+                with open(out, "rb") as f:
+                    files[backend].append(f.read())
+            report.append(f"meta {os.path.basename(path)} {backend} "
+                          f"{wall:.2f} s")
+    if files["cuda"] != files["refcore"]:
+        raise AssertionError(f"CLI meta {path}: bytes differ")
+    if not files["cuda"][1]:
+        raise AssertionError(f"CLI meta {path}: no protein written")
+    print("phase 4 CLI (python -m pyrodigal_tpu_torch -p meta -o -a -d -s, "
           "default backend against --backend refcore): rc 0 and every "
           "output's bytes equal; wall, process start and kernel load "
           "included: " + ", ".join(report), flush=True)
@@ -1794,14 +1608,11 @@ def main():
     sets = {"bench_set": phase_end_to_end_mega(),
             "short_set": phase_end_to_end_std(contigs)}
     mega, std = (sets[k]["launches"] for k in ("bench_set", "short_set"))
-    single_genome, single_short = phase_single(contigs)
-    phase_cli(contigs)
+    phase_cli()
     mesh = phase_mesh(sets)
     for k in kernels:
         name = k["name"]
         k["launches"] = (mega[name] + std[name]
-                         + single_genome["launches"][name]
-                         + single_short["launches"][name]
                          + sum(m["launches"][name] for m in mesh.values()))
         k["launches_bench_set"] = mega[name]
         k["launches_short_set"] = std[name]
@@ -1809,13 +1620,6 @@ def main():
             k[f"launches_mesh_{label}"] = m["launches"][name]
             k[f"launches_mesh_{label}_per_shard"] = [
                 c[name] for c in m["shards"]]
-        for label, r in (("genome", single_genome),
-                         ("short_set", single_short)):
-            k[f"launches_single_{label}"] = r["launches"][name]
-            if name in r["checks"]:
-                err, shapes = r["checks"][name]
-                k[f"max_abs_err_single_{label}"] = err
-                k[f"shape_single_{label}"] = shapes[0]
     for mod in ("jax", "pyrodigal_tpu"):
         if mod in sys.modules:
             raise RuntimeError(f"{mod} was imported: the port stands alone")

@@ -10,8 +10,9 @@ single mode trains on the joined contigs (on the exact C engine) then
 maps `find_genes` over a worker pool, while meta mode streams contigs
 through `GeneFinder.find_genes_batch` so the batched on-device (contig,
 bin) sweep is the product path.  `--backend cuda`, the default, needs a
-CUDA device and exits with an error without one; `--backend refcore`
-runs the exact C engine on the CPU.
+CUDA device and exits with an error without one, in both modes;
+`--backend refcore` runs the exact C engine on the CPU.  Single mode
+runs the exact C engine on either backend.
 """
 
 import argparse
@@ -87,7 +88,7 @@ def argument_parser(
                         help="The kind of pool used to process sequences in parallel.")
     parser.add_argument("--backend", action="store",
                         choices=("cuda", "refcore"), default="cuda",
-                        help="Compute backend: the batched pipeline on a CUDA device, or the exact C engine on the CPU. Single mode is not accelerated on the device: the C engine re-runs the trained model for every contig.")
+                        help="Compute backend: the batched pipeline on a CUDA device, or the exact C engine on the CPU. Single mode is not accelerated: it runs the exact C engine on either backend.")
     parser.add_argument("--meta-batch", type=int, default=META_BATCH,
                         help="Contigs per device launch group in meta mode.")
     return parser

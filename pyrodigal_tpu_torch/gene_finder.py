@@ -3,14 +3,13 @@ package's `pyrodigal_tpu.gene_finder`).
 
 Backends:
 
-* ``"cuda"`` (default): both modes run `CudaMetaRunner` on ``cuda:0``.
-  Meta mode sweeps the metagenomic bins on the card and re-runs the
-  winning bin(s) on the exact C engine.  Single mode runs the same
-  launches with one bin, the trained model (`is_meta=False` scoring), as
-  the JAX package does; the exact engine re-runs that bin for every
-  contig beside the launch, so single mode is not accelerated: it costs
-  at least the C engine's time.  Construction raises `RuntimeError` when
-  no CUDA device is available; nothing falls back to the CPU.
+* ``"cuda"`` (default): meta mode runs `CudaMetaRunner` on ``cuda:0``:
+  it sweeps the metagenomic bins on the card and re-runs the winning
+  bin(s) on the exact C engine.  Single mode has no bin to choose, and
+  the exact engine would re-run its one model for every contig whatever
+  a launch scored, so it runs the exact C engine, as ``"refcore"`` does.
+  Construction raises `RuntimeError` when no CUDA device is available,
+  in both modes; nothing falls back to the CPU.
 * ``"refcore"``: the exact float64 C engine on the CPU, single and meta
   mode.  It runs only when the caller asks for it.
 
@@ -33,15 +32,6 @@ from .nodes import Nodes
 from .genes import Genes
 from .training import TrainingInfo
 from . import _native
-
-
-class _SingleBin:
-    """The one "bin" of single mode's runner: the trained model."""
-
-    description = "single"
-
-    def __init__(self, training_info):
-        self.training_info = training_info
 
 
 class GeneFinder:
@@ -104,10 +94,6 @@ class GeneFinder:
         self.backend = backend
         self._num_seq = 1
         self._meta_runner = None
-        self._single_runner = None
-        self._single_runner_tinf = None
-        # single-mode runner -> calls running on it
-        self._single_calls = {}
         if metagenomic_bins is None:
             from .metagenomic import METAGENOMIC_BINS
             self.metagenomic_bins = METAGENOMIC_BINS
@@ -131,62 +117,15 @@ class GeneFinder:
                 )
             return self._meta_runner
 
-    def _get_single_runner(self):
-        """Single mode on the GPU: one runner over a one-bin list whose bin
-        carries the trained `training_info`, with `is_meta=False`; rebuilt
-        when `training_info` is another object (a retrain, or an
-        assignment).  Counts the caller as a call running on the runner
-        until `_release_single_runner`; a replaced runner is closed when
-        its last call returns."""
-        with self.lock:
-            tinf = self.training_info
-            if self._single_runner is None \
-                    or self._single_runner_tinf is not tinf:
-                from .ops.meta_cuda import CudaMetaRunner
-
-                old = self._single_runner
-                self._single_runner = CudaMetaRunner(
-                    [_SingleBin(tinf)],
-                    device="cuda:0",
-                    is_meta=False,
-                    closed=self.closed,
-                    mask=self.mask,
-                    min_mask=self.min_mask,
-                    min_gene=self.min_gene,
-                    min_edge_gene=self.min_edge_gene,
-                    max_overlap=self.max_overlap,
-                )
-                self._single_runner_tinf = tinf
-                if old is not None and old not in self._single_calls:
-                    old.close()
-            runner = self._single_runner
-            self._single_calls[runner] = self._single_calls.get(runner, 0) + 1
-            return runner
-
-    def _release_single_runner(self, runner):
-        with self.lock:
-            self._single_calls[runner] -= 1
-            if self._single_calls[runner] == 0:
-                del self._single_calls[runner]
-                if runner is not self._single_runner:
-                    runner.close()
-
     def _find_genes_device(self, sequences, num_seq):
-        if self.meta:
-            return self._get_meta_runner().find_genes_batch(
-                sequences, num_seq_start=num_seq)
-        runner = self._get_single_runner()
-        try:
-            return runner.find_genes_batch(sequences, num_seq_start=num_seq)
-        finally:
-            self._release_single_runner(runner)
+        return self._get_meta_runner().find_genes_batch(
+            sequences, num_seq_start=num_seq)
 
     def _on_device(self):
-        """True when the call runs on the GPU: backend "cuda", in single
-        mode, or in meta mode with bins to sweep (with none, meta mode
-        finds no genes)."""
-        return self.backend == "cuda" and (
-            not self.meta or len(self.metagenomic_bins) > 0)
+        """True when the call runs on the GPU: backend "cuda" in meta mode
+        with bins to sweep (with none, meta mode finds no genes)."""
+        return self.backend == "cuda" and self.meta \
+            and len(self.metagenomic_bins) > 0
 
     def __repr__(self):
         template = []
@@ -268,9 +207,8 @@ class GeneFinder:
         return tinf
 
     def _find_genes_single(self, seq, tinf, nodes, genes):
-        """(reference: lib.pyx:5281-5315), on the exact C engine; on
-        ``backend="cuda"`` `find_genes` sends single mode to the runner
-        before it reaches here."""
+        """(reference: lib.pyx:5281-5315), on the exact C engine on every
+        backend."""
         self._extract_sorted(nodes, seq, tinf.translation_table)
         nodes.reset_scores()
         nodes.score_nodes(seq, tinf, closed=self.closed, is_meta=False)
@@ -360,10 +298,9 @@ class GeneFinder:
     def find_genes_batch(self, sequences):
         """Find genes in a batch of input sequences.
 
-        With ``backend="cuda"`` this sends all (contig, bin) work items
-        (one bin a contig in single mode) through the batched on-device
-        scoring + DP pipeline; with ``backend="refcore"`` it maps
-        `find_genes`.
+        In meta mode with ``backend="cuda"`` this sends all (contig, bin)
+        work items through the batched on-device scoring + DP pipeline;
+        otherwise it maps `find_genes`.
         """
         sequences = list(sequences)
         if not self.meta and self.training_info is None:

@@ -1,4 +1,4 @@
-"""Gene calling on the GPU, meta and single mode: the std and mega routes.
+"""Meta-mode gene calling on the GPU: the std and mega routes.
 
 Port of `pyrodigal_tpu.ops.meta_tpu.TpuMetaRunner`.  Host prep (node
 extraction, geometry) runs on a thread pool and picks each contig's
@@ -29,15 +29,6 @@ tables replicated on each mesh device, as the JAX package's runner does
 with its `mesh` (meta_tpu.py:244-250, 362-388); without one, a one-device
 mesh over `device` runs the whole launch.  The genes are the same either
 way; a mesh is slower than one card today (`CudaMetaRunner`).
-
-Single mode (`is_meta=False`) runs the same launches with one bin, the
-trained model, and `is_meta=False` scoring, as the JAX package's runner
-does.  There is no bin to choose, so the exact engine re-runs that bin
-for every contig whatever its device score (reference:
-lib.pyx:5281-5315), from the moment the contig's prep is done: the
-launches run beside the finishing, and their one-row best scores only
-feed `single_drift`.  Single mode is not faster on the card than on the
-C engine.
 """
 
 import concurrent.futures
@@ -92,9 +83,8 @@ def std_buckets(nodes, slen):
 
 
 class CudaMetaRunner:
-    """Batched gene calling with on-device per-bin scoring: meta mode over
-    `metagenomic_bins`, or single mode (`is_meta=False`) over a one-bin
-    list whose bin carries the trained `training_info`.
+    """Batched meta-mode gene calling over `metagenomic_bins`, with
+    on-device per-bin scoring.
 
     `mesh` (`parallel.make_mesh`) splits every launch's rows over its
     devices; by default a one-device mesh over `device` runs them all.
@@ -125,11 +115,10 @@ class CudaMetaRunner:
     @tracing.setup("setup.runner")
     def __init__(self, metagenomic_bins, *, device, closed=False,
                  min_gene=90, min_edge_gene=60, max_overlap=60, mask=False,
-                 min_mask=50, is_meta=True, mesh=None):
+                 min_mask=50, mesh=None):
         self.device = canonical(device)
         self.mesh = mesh if mesh is not None else Mesh([self.device])
         self.bins = metagenomic_bins
-        self.is_meta = is_meta
         self.closed = closed
         self.min_gene = min_gene
         self.min_edge_gene = min_edge_gene
@@ -153,12 +142,6 @@ class CudaMetaRunner:
         # device launches run in submission order on one thread
         self.launcher = concurrent.futures.ThreadPoolExecutor(1)
         self.route_counts = {"std": 0, "mega": 0, "c": 0}
-        # single mode: the device's one-row best scores against the exact
-        # engine's, over the runner's calls: contigs compared, the worst
-        # |device - exact| over a tenth of the winner margin (the bound
-        # the tests hold the kernels to), and the worst relative drift
-        self.single_drift = {"pairs": 0, "margin_ratio": 0.0,
-                             "relative": 0.0}
         self._count_lock = threading.Lock()
 
     def close(self):
@@ -169,8 +152,6 @@ class CudaMetaRunner:
     # -- host side -----------------------------------------------------------
 
     def _candidate_bins(self, seq):
-        if not self.is_meta:
-            return [0] if len(self.bins) else []
         low = min(0.65, 0.88495 * seq.gc - 0.0102337)
         high = max(0.35, 0.86596 * seq.gc + 0.1131991)
         return [
@@ -337,8 +318,8 @@ class CudaMetaRunner:
                    node_rows_bucket=NT * B)
         best = sharded_score_dp_launch_mega(
             self.mesh, self.shard_tables, packed, bin_idx,
-            is_meta=self.is_meta, closed=self.closed, has_nonsd=nonsd,
-            relk=RELK, max_overlap=self.max_overlap, fxs=fxs)
+            closed=self.closed, has_nonsd=nonsd, relk=RELK,
+            max_overlap=self.max_overlap, fxs=fxs)
         return best, rows, CP, B
 
     def _pack_std(self, items):
@@ -426,15 +407,15 @@ class CudaMetaRunner:
                    node_rows_bucket=len(bin_idx) * nb)
         return sharded_score_dp_launch(
             self.mesh, self.shard_tables, packed, bin_idx, gidx,
-            is_meta=self.is_meta, closed=self.closed, has_nonsd=nonsd,
-            relk=RELK, max_overlap=self.max_overlap)
+            closed=self.closed, has_nonsd=nonsd, relk=RELK,
+            max_overlap=self.max_overlap)
 
     # -- finishing (host, exact C on the winning bin) -------------------------
 
     def _genes(self, seq, num_seq):
         genes = Genes()
         genes._num_seq = num_seq
-        genes.meta = self.is_meta
+        genes.meta = True
         genes.sequence = seq
         return genes
 
@@ -445,13 +426,12 @@ class CudaMetaRunner:
             nodes.eliminate_bad_genes(ipath, tinf)
         genes._extract(nodes, ipath)
         genes._tweak_final_starts(nodes, tinf, self.max_overlap)
-        # meta: the reference re-extracts and rescores the nodes for the
-        # winning bin after the sweep, so the written per-gene scores are
-        # the fresh model scores without the eliminate/tweak adjustments
-        # (lib.pyx:5380-5394); `out_nodes` is that pre-DP snapshot.
-        # Single mode keeps the adjusted nodes (lib.pyx:5281-5315).
-        genes.nodes = out_nodes if self.is_meta else nodes
-        genes.metagenomic_bin = self.bins[bin_id] if self.is_meta else None
+        # the reference re-extracts and rescores the nodes for the winning
+        # bin after the sweep, so the written per-gene scores are the fresh
+        # model scores without the eliminate/tweak adjustments
+        # (lib.pyx:5380-5394); `out_nodes` is that pre-DP snapshot
+        genes.nodes = out_nodes
+        genes.metagenomic_bin = self.bins[bin_id]
         genes.training_info = tinf
         return genes
 
@@ -459,17 +439,16 @@ class CudaMetaRunner:
         tinf = self.bins[bin_id].training_info
         nodes = nodes_by_tt[tinf.translation_table].copy()
         nodes.reset_scores()
-        nodes.score_nodes(seq, tinf, closed=self.closed,
-                          is_meta=self.is_meta)
+        nodes.score_nodes(seq, tinf, closed=self.closed, is_meta=True)
         nodes.record_overlapping_starts(tinf, 1, self.max_overlap)
         return nodes
 
     def _run_bin(self, seq, nodes_by_tt, bin_id):
         """One bin on the exact engine, from a copy of prep's nodes:
         (bin_id, nodes after the final DP, its path end, the pre-DP
-        snapshot that meta mode writes, or None in single mode)."""
+        snapshot that `_finish` writes)."""
         nodes = self._score_winner(seq, nodes_by_tt, bin_id)
-        out_nodes = nodes.copy() if self.is_meta else None
+        out_nodes = nodes.copy()
         ipath = nodes.dynamic_programming(self.bins[bin_id].training_info,
                                           final=True)
         return bin_id, nodes, ipath, out_nodes
@@ -490,16 +469,11 @@ class CudaMetaRunner:
 
     def _produce_fallback(self, seq, num_seq, cand, nodes_by_tt):
         """A contig the mega kernel cannot take: every candidate bin on the
-        exact engine, from prep's nodes.  In meta mode the bins run side
-        by side on `bin_pool` and the winner is the one the reference's
-        sequential sweep picks; single mode's one bin runs here."""
+        exact engine, from prep's nodes, side by side on `bin_pool`; the
+        winner is the one the reference's sequential sweep picks."""
         sp = tracing.current("exact_route")
         if sp:
             sp.set(bins=len(cand), workers=PREP_THREADS)
-        if not self.is_meta:
-            with tracing.span("exact_route.bin", bin=0):
-                run = self._run_bin(seq, nodes_by_tt, 0)
-            return self._finish(seq, num_seq, *run)
         futs = [self.bin_pool.submit(
             tracing.carry(self._run_bin, "exact_route.bin", bin=b),
             seq, nodes_by_tt, b) for b in cand]
@@ -516,37 +490,12 @@ class CudaMetaRunner:
     def _margin(best):
         return 1.0 + 1e-4 * abs(best)
 
-    def _produce_single(self, seq, num_seq, nodes_by_tt):
-        """Single mode's finishing: the exact engine re-runs the one bin
-        and finishes whatever the path (lib.pyx:5281-5315).  Returns
-        (genes, the exact best path score, or None with no path)."""
-        with tracing.span("finish.rerun", bin=0):
-            run = self._run_bin(seq, nodes_by_tt, 0)
-        sp = tracing.current("finish")
-        if sp:
-            sp.set(bins=1, winner=0)
-        _b, nodes, ipath, _out = run
-        exact = float(nodes.score[ipath]) \
-            if nodes.length > 0 and ipath >= 0 else None
-        return self._finish(seq, num_seq, *run), exact
-
-    def _record_drift(self, device, exact):
-        if exact is None:
-            return
-        diff = abs(device - exact)
-        with self._count_lock:
-            d = self.single_drift
-            d["pairs"] += 1
-            d["margin_ratio"] = max(d["margin_ratio"],
-                                    diff / (0.1 * self._margin(exact)))
-            d["relative"] = max(d["relative"], diff / max(abs(exact), 1.0))
-
     def _produce_winner(self, seq, num_seq, cands, nodes_by_tt):
-        """Exact finishing for one contig in meta mode.  `cands`:
-        [(bin_id, device_score)].  The winning bin, and every bin within
-        the f32 drift margin of it, is re-run through the exact f64 C
-        engine, one after another on this thread, and chosen as the
-        reference chooses (`_choose`)."""
+        """Exact finishing for one contig.  `cands`: [(bin_id,
+        device_score)].  The winning bin, and every bin within the f32
+        drift margin of it, is re-run through the exact f64 C engine, one
+        after another on this thread, and chosen as the reference chooses
+        (`_choose`)."""
         best_dev = max(s for _b, s in cands)
         close = sorted(b for b, s in cands
                        if s >= best_dev - self._margin(best_dev))
@@ -612,11 +561,6 @@ class CudaMetaRunner:
                 futures[ci] = self.pool.submit(
                     self._produce_empty, contigs[ci], num_seq_start + ci)
                 continue
-            if not self.is_meta:
-                # single mode finishes now; the launch runs beside it
-                futures[ci] = self.pool.submit(
-                    tracing.carry(self._produce_single, "finish", contig=ci),
-                    contigs[ci], num_seq_start + ci, nodes_by_tt)
             nodes_maps[ci] = nodes_by_tt
             if route == "std":
                 std_items.append((ci, cand, geoms))
@@ -640,13 +584,9 @@ class CudaMetaRunner:
                 tracing.carry(self._sweep_std, "launch"), L["work"],
                 L["geoms"])
 
-        device_best = {}
-
         def submit(ci, cands):
-            if not self.is_meta:
-                device_best[ci] = cands[0][1]
-            # meta mode: no bin found a path (lib.pyx:5361)
-            elif max(s for _b, s in cands) <= -100.0:
+            # no bin found a path (lib.pyx:5361)
+            if max(s for _b, s in cands) <= -100.0:
                 futures[ci] = self.pool.submit(
                     self._produce_empty, contigs[ci], num_seq_start + ci)
             else:
@@ -654,9 +594,9 @@ class CudaMetaRunner:
                     tracing.carry(self._produce_winner, "finish", contig=ci),
                     contigs[ci], num_seq_start + ci, cands, nodes_maps[ci])
 
-        # pull launches in dispatch order, mega first; in meta mode each
-        # contig goes to the exact-C winner finishing when its last item
-        # arrives, while the device runs later launches
+        # pull launches in dispatch order, mega first; each contig goes to
+        # the exact-C winner finishing when its last item arrives, while the
+        # device runs later launches
         cands_by_ci = {}
         for gr in groups:
             bests, rows, _CP, _B = gr["fut"].result()
@@ -674,8 +614,4 @@ class CudaMetaRunner:
                 cands_by_ci.setdefault(ci, []).append((b, float(bests[k])))
             for ci in dict.fromkeys(ci for ci, _b, _key in L["work"]):
                 submit(ci, cands_by_ci.pop(ci))
-        out = [futures[ci].result() for ci in range(len(contigs))]
-        for ci, dev in device_best.items():
-            out[ci], exact = out[ci]
-            self._record_drift(dev, exact)
-        return out
+        return [futures[ci].result() for ci in range(len(contigs))]

@@ -679,8 +679,8 @@ def score_only(tables, geo, bin_idx, gidx=None, *, is_meta, closed,
     return (*rows, cscore, ssc, rsc, usc, edge.expand(BT, -1), stw)
 
 
-def score_dp_launch(tables, geo, bin_idx, gidx, *, is_meta, closed,
-                    has_nonsd, relk, max_overlap):
+def score_dp_launch(tables, geo, bin_idx, gidx, *, closed, has_nonsd, relk,
+                    max_overlap):
     """One std launch: BT work items, row b the (contig, bin) pair of
     geometry gidx[b] of `pack_geometries` and bin bin_idx[b]: scoring, the
     star kernel over per-row geometry, the std DP kernel.  Returns the
@@ -690,7 +690,7 @@ def score_dp_launch(tables, geo, bin_idx, gidx, *, is_meta, closed,
     with tracing.span("launch.score"):
         (ndx, stop_val, typ, strand, win_lo, valid, edge,
          cscore, ssc, rsc, usc, stw) = _score_items(
-            tables, geo, bin_idx, gidx, is_meta=is_meta, closed=closed,
+            tables, geo, bin_idx, gidx, is_meta=True, closed=closed,
             has_nonsd=has_nonsd)
     cs = (cscore + ssc).contiguous()
     rsc = rsc.contiguous()
@@ -705,8 +705,8 @@ def score_dp_launch(tables, geo, bin_idx, gidx, *, is_meta, closed,
     return best
 
 
-def score_dp_launch_mega(tables, geo, bin_idx, *, is_meta, closed,
-                         has_nonsd, relk, max_overlap, fxs=dp_cuda.FXS):
+def score_dp_launch_mega(tables, geo, bin_idx, *, closed, has_nonsd, relk,
+                         max_overlap, fxs=dp_cuda.FXS):
     """One mega launch: one contig, or a pack of contigs laid end to end
     (geo from `pack_geometries_multi`), with the candidate-bin union as
     rows: scoring, the star kernel, the mega DP kernel.
@@ -717,7 +717,7 @@ def score_dp_launch_mega(tables, geo, bin_idx, *, is_meta, closed,
     with tracing.span("launch.score"):
         (ndx, stop_val, typ, strand, win_lo, valid, edge,
          cscore, ssc, rsc, usc, stw) = _score_items(
-            tables, geo, bin_idx, is_meta=is_meta, closed=closed,
+            tables, geo, bin_idx, is_meta=True, closed=closed,
             has_nonsd=has_nonsd)
     ndx, stop_val, typ, strand, win_lo, valid, edge = (
         a[0] for a in (ndx, stop_val, typ, strand, win_lo, valid, edge))

@@ -1,4 +1,4 @@
-"""Meta- and single-mode launches with their rows sharded over a mesh.
+"""Meta-mode launches with their rows sharded over a mesh.
 
 Port of `pyrodigal_tpu.parallel.meta_shard`.  A launch's rows are
 independent: the std route's rows are (contig, bin) work items, each
@@ -33,7 +33,7 @@ def _row_slices(mesh, B):
 
 
 def sharded_score_dp_launch(mesh, tables_per_device, geo, bin_idx, gidx, *,
-                            is_meta, closed, has_nonsd, relk, max_overlap):
+                            closed, has_nonsd, relk, max_overlap):
     """`score_device.score_dp_launch` with the work-item rows split into
     `mesh.size` contiguous slices of equal length (the counterpart of
     the JAX package's `sharded_score_dp_launch`).
@@ -50,7 +50,7 @@ def sharded_score_dp_launch(mesh, tables_per_device, geo, bin_idx, gidx, *,
                     torch.from_numpy(gidx[slices[k]]).to(dev))
         best = sd.score_dp_launch(
             tables_per_device[k].as_tuple(), sd.to_device(geo, dev), *rows,
-            is_meta=is_meta, closed=closed, has_nonsd=has_nonsd, relk=relk,
+            closed=closed, has_nonsd=has_nonsd, relk=relk,
             max_overlap=max_overlap)
         with tracing.span("launch.wait"):
             return best.cpu().numpy()
@@ -59,8 +59,7 @@ def sharded_score_dp_launch(mesh, tables_per_device, geo, bin_idx, gidx, *,
 
 
 def sharded_score_dp_launch_mega(mesh, tables_per_device, geo, bin_idx, *,
-                                 is_meta, closed, has_nonsd, relk,
-                                 max_overlap, fxs):
+                                 closed, has_nonsd, relk, max_overlap, fxs):
     """`score_device.score_dp_launch_mega` with the bin rows split into
     `mesh.size` equal slices and the packed geometry (numpy, from
     `pack_geometries_multi`) copied to every shard: a row-parallel
@@ -76,7 +75,7 @@ def sharded_score_dp_launch_mega(mesh, tables_per_device, geo, bin_idx, *,
             rows = torch.from_numpy(bin_idx[slices[k]]).to(dev)
         best = sd.score_dp_launch_mega(
             tables_per_device[k].as_tuple(), sd.to_device(geo, dev), rows,
-            is_meta=is_meta, closed=closed, has_nonsd=has_nonsd, relk=relk,
+            closed=closed, has_nonsd=has_nonsd, relk=relk,
             max_overlap=max_overlap, fxs=fxs)
         with tracing.span("launch.wait"):
             return best.cpu().numpy()

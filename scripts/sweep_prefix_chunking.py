@@ -7,8 +7,7 @@ weigh rules that pick the tiles a block.
 
 1. Records every (kernel, rows, S) the runner launches (the wrappers
    wrapped): meta mode on chip_smoke's bench set and short-contig set,
-   single mode on the genome and on the short set (trained on the
-   genome), and meta mode on both sets over two shards on cuda:0.
+   and on both sets over two shards on cuda:0.
 2. Times, at every recorded shape, the bare C launch at 1 to 16 tiles a
    block on random operands: the least, over `--rounds` rounds, of the
    mean of `--reps` calls in one CUDA graph (chip_smoke._graph_ms).
@@ -87,7 +86,6 @@ def main():
         return 1
 
     import chip_smoke as cs
-    import pyrodigal_tpu_torch
     from pyrodigal_tpu_torch import METAGENOMIC_BINS, _build
     from pyrodigal_tpu_torch.ops import star_cuda
     from pyrodigal_tpu_torch.ops.meta_cuda import CudaMetaRunner
@@ -96,17 +94,12 @@ def main():
     _build.lib()
     bench = [r.seq for name in cs.CONTIGS for r in cs._records(name)]
     short = [s for _n, s in cs.short_contigs()]
-    genome = cs._records(cs.GENOME)[0].seq
     shapes = {"main": collections.Counter(), "mesh2": collections.Counter()}
 
     runner = CudaMetaRunner(METAGENOMIC_BINS, device="cuda:0")
     _record(shapes, "main", lambda: runner.find_genes_batch(bench))
     _record(shapes, "main", lambda: runner.find_genes_batch(short))
     runner.close()
-    finder = pyrodigal_tpu_torch.GeneFinder(backend="cuda")
-    finder.train(genome)
-    _record(shapes, "main", lambda: finder.find_genes(genome))
-    _record(shapes, "main", lambda: finder.find_genes_batch(short))
     mesh = make_mesh(devices=["cuda:0"] * 2)
     runner = CudaMetaRunner(METAGENOMIC_BINS, device="cuda:0", mesh=mesh)
     _record(shapes, "mesh2", lambda: runner.find_genes_batch(bench))

@@ -155,11 +155,12 @@ def exact_only(monkeypatch, mega_only):
     monkeypatch.setattr(dp_cuda, "MEGA_CHUNKS", 0)
 
 
-def _writer_bytes(genes):
-    """GFF, nucleotide FASTA and protein FASTA."""
+def _writer_bytes(genes, scores=False):
+    """GFF, nucleotide FASTA and protein FASTA, and with `scores` the
+    start score table."""
     out = []
-    for write in (genes.write_gff, genes.write_genes,
-                  genes.write_translations):
+    writers = [genes.write_gff, genes.write_genes, genes.write_translations]
+    for write in writers + [genes.write_scores] * scores:
         f = io.StringIO()
         write(f, "contig")
         out.append(f.getvalue())
@@ -349,19 +350,78 @@ def test_std_route_closed_mask(data, closed, mask):
 
 
 @needs_bins
+@pytest.mark.parametrize("route", ["std", "mega"])
 @pytest.mark.parametrize("kw", [
     dict(min_gene=60, min_edge_gene=30, max_overlap=30),
     dict(min_gene=120, max_overlap=40),
     dict(max_overlap=0),
 ])
-def test_std_route_option_variants(data, kw):
+def test_std_route_option_variants(data, kw, route, monkeypatch):
+    """`min_gene`, `min_edge_gene` and `max_overlap` on each route."""
+    if route == "mega":
+        monkeypatch.setattr(meta_cuda, "SEQ_BUCKET", 2048)
     seq = list(parse(data("SRR492066.fna.gz")))[0].seq[:24000]
     a = GeneFinder(meta=True, backend="refcore", **kw).find_genes(seq)
     runner = _runner(**kw)
     b = runner.find_genes_batch([seq])[0]
-    assert runner.route_counts["std"] == 1
+    assert runner.route_counts[route] == 1
     assert b.metagenomic_bin.description == a.metagenomic_bin.description
     _assert_same_genes(a, b)
+
+
+def _bin_set(data, name):
+    """(contig, bins) of a bin set: every bin, the non-SD bins, the
+    translation table 4 bins, or the all-bins winner alone; the contig's
+    GC admits the set's bins."""
+    srr = list(parse(data("SRR492066.fna.gz")))[0].seq[30000:54000]
+    if name == "nonsd":
+        return (list(parse(data("KK037166.fna.gz")))[0].seq,
+                MetagenomicBins(b for b in METAGENOMIC_BINS
+                                if not b.training_info.uses_sd))
+    if name == "table4":
+        # 12 kb of sequence before an N run: GC 0.25
+        miij = list(parse(data("MIIJ01000039.fna.gz")))[0].seq
+        return (miij[372000:396000],
+                MetagenomicBins(b for b in METAGENOMIC_BINS
+                                if b.training_info.translation_table == 4))
+    if name == "winner":
+        winner = GeneFinder(meta=True, backend="refcore").find_genes(
+            srr).metagenomic_bin
+        return srr, MetagenomicBins((winner,))
+    return srr, METAGENOMIC_BINS
+
+
+@needs_bins
+@pytest.mark.parametrize("route", ["std", "mega", "c"])
+@pytest.mark.parametrize("bin_set", ["all", "nonsd", "table4", "winner"])
+def test_outputs_match_refcore_bytes(data, bin_set, route, monkeypatch):
+    """All four writers' bytes, the start score table (the pre-DP
+    snapshot `_finish` writes) among them, equal refcore's over the same
+    bins on each route: every bin, a launch whose every row is non-SD,
+    node extraction for translation table 4 alone, and a one-row launch
+    of the winner alone."""
+    if route != "std":
+        monkeypatch.setattr(meta_cuda, "SEQ_BUCKET", 2048)
+    if route == "c":
+        monkeypatch.setattr(dp_cuda, "MEGA_CHUNKS", 0)
+    seq, bins = _bin_set(data, bin_set)
+    runner = _runner(bins)
+    if bin_set != "all":
+        # the contig's GC admits every bin of the set
+        assert runner._candidate_bins(Sequence(seq)) == \
+            list(range(len(bins)))
+    expected = GeneFinder(meta=True, metagenomic_bins=bins,
+                          backend="refcore").find_genes(seq)
+    (got,) = runner.find_genes_batch([seq])
+    runner.close()
+    routes = dict.fromkeys(("std", "mega", "c"), 0)
+    routes[route] = 1
+    assert runner.route_counts == routes
+    assert len(got) > 0
+    assert got.metagenomic_bin.description == \
+        expected.metagenomic_bin.description
+    assert _writer_bytes(got, scores=True) == \
+        _writer_bytes(expected, scores=True)
 
 
 @needs_bins

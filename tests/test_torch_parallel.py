@@ -2,7 +2,7 @@
 meshes, the twin of tests/test_parallel.py: the mesh, the hexamer tallies
 and `train_distributed` against the serial tally, the exact C engine and
 the JAX package's `parallel` functions; `CudaMetaRunner(mesh=...)` on both
-routes and in both modes against refcore's bytes and, per (contig, bin),
+routes against refcore's bytes and, per (contig, bin),
 exactly against the unsharded runner's best scores (the plain twins score
 each row alone, so a row's result cannot depend on its shard); the
 launch counters under concurrent threads; and, on a card, two shards on
@@ -233,13 +233,6 @@ def test_wrappers_count_no_launch_on_the_cpu():
 # the sharded runner on the CPU
 # --------------------------------------------------------------------------
 
-class _Bin:
-    description = "single"
-
-    def __init__(self, ti):
-        self.training_info = ti
-
-
 def _contigs(data, route):
     seq = _srr(data)
     if route == "mega":
@@ -283,13 +276,9 @@ def _real_scores(entry):
     return best[:len(args[0]), :len(rows)]
 
 
-def _run(route, mode, model, seqs, mesh):
+def _run(route, seqs, mesh):
     """(genes, launch log, route counts) of one find_genes_batch call."""
-    if mode == "meta":
-        bins, kw = METAGENOMIC_BINS, {}
-    else:
-        bins, kw = [_Bin(model)], {"is_meta": False}
-    runner = CudaMetaRunner(bins, device="cpu", mesh=mesh, **kw)
+    runner = CudaMetaRunner(METAGENOMIC_BINS, device="cpu", mesh=mesh)
     log = _recording(runner)
     saved = meta_cuda.SEQ_BUCKET
     if route == "mega":
@@ -303,28 +292,22 @@ def _run(route, mode, model, seqs, mesh):
 
 
 @pytest.fixture(scope="module")
-def single_model(data):
-    return _refcore_train(_srr(data))
-
-
-@pytest.fixture(scope="module")
-def unsharded(data, single_model):
-    """The unsharded CPU runner's run per (route, mode), made once."""
+def unsharded(data):
+    """The unsharded CPU runner's run per route, made once."""
     cache = {}
 
-    def get(route, mode):
-        if (route, mode) not in cache:
-            cache[route, mode] = _run(route, mode, single_model,
-                                      _contigs(data, route), None)
-        return cache[route, mode]
+    def get(route):
+        if route not in cache:
+            cache[route] = _run(route, _contigs(data, route), None)
+        return cache[route]
 
     return get
 
 
-def _outputs(genes, scores):
+def _outputs(genes):
     out = []
-    writers = [genes.write_gff, genes.write_genes, genes.write_translations]
-    for write in writers + [genes.write_scores] * scores:
+    for write in (genes.write_gff, genes.write_genes,
+                  genes.write_translations):
         f = io.StringIO()
         write(f, "contig")
         out.append(f.getvalue())
@@ -333,30 +316,23 @@ def _outputs(genes, scores):
 
 @needs_bins
 @pytest.mark.parametrize("D", [2, 3])
-@pytest.mark.parametrize("mode", ["meta", "single"])
 @pytest.mark.parametrize("route", ["std", "mega"])
-def test_sharded_runner_equals_unsharded_and_refcore(data, single_model,
-                                                      unsharded, route,
-                                                      mode, D):
+def test_sharded_runner_equals_unsharded_and_refcore(data, unsharded, route,
+                                                      D):
     """Output bytes equal refcore's, and every per-(contig, bin) best score
     of every launch exactly equals the unsharded runner's; D = 3 pads the
     rows (the mega route's 8 or 16 bin rows, the std route's blocks of
     16) to a multiple of the mesh."""
     seqs = _contigs(data, route)
     mesh = make_mesh(devices=["cpu"] * D)
-    got, log, routes = _run(route, mode, single_model, seqs, mesh)
-    _u_genes, u_log, u_routes = unsharded(route, mode)
+    got, log, routes = _run(route, seqs, mesh)
+    _u_genes, u_log, u_routes = unsharded(route)
     assert routes == u_routes
     assert routes[route] == len(seqs)
-    if mode == "meta":
-        finder = pyrodigal_tpu_torch.GeneFinder(meta=True, backend="refcore")
-    else:
-        finder = pyrodigal_tpu_torch.GeneFinder(training_info=single_model,
-                                                backend="refcore")
+    finder = pyrodigal_tpu_torch.GeneFinder(meta=True, backend="refcore")
     ref = [finder.find_genes(s) for s in seqs]
     for a, b in zip(ref, got):
-        assert _outputs(b, mode == "single") == \
-            _outputs(a, mode == "single")
+        assert _outputs(b) == _outputs(a)
     assert len(log) == len(u_log) > 0
     for entry, u_entry in zip(log, u_log):
         assert _launch_key(entry) == _launch_key(u_entry)
@@ -377,8 +353,8 @@ def test_sharded_launch_rejects_uneven_rows():
     with pytest.raises(ValueError, match="split evenly"):
         sharded_score_dp_launch_mega(
             make_mesh(devices=["cpu"] * 3), [None] * 3, {},
-            np.zeros(8, np.int64), is_meta=True, closed=False,
-            has_nonsd=False, relk=32, max_overlap=60, fxs=2048)
+            np.zeros(8, np.int64), closed=False, has_nonsd=False, relk=32,
+            max_overlap=60, fxs=2048)
 
 
 # --------------------------------------------------------------------------
@@ -418,8 +394,8 @@ def _card_runs(data, mesh):
 def _check_card_runs(ref, runs, mesh):
     (u_genes, u_log, _u), (genes, log, tally) = runs
     for a, b, c in zip(ref, u_genes, genes):
-        assert _outputs(b, False) == _outputs(a, False)
-        assert _outputs(c, False) == _outputs(a, False)
+        assert _outputs(b) == _outputs(a)
+        assert _outputs(c) == _outputs(a)
     assert len(log) == len(u_log) > 0
     for entry, u_entry in zip(log, u_log):
         assert _launch_key(entry) == _launch_key(u_entry)
