@@ -1146,9 +1146,8 @@ def _drive(named, kernels):
 
 
 def _exact_score(runner, seq, nodes_by_tt, b):
-    nodes = runner._score_winner(seq, nodes_by_tt, b)
-    ip = nodes.dynamic_programming(runner.bins[b].training_info, final=True)
-    return float(nodes.score[ip]) if nodes.length > 0 and ip >= 0 else None
+    run = runner._run_bin(seq, nodes_by_tt, b)
+    return run.score if run.ipath >= 0 else None
 
 
 def phase_end_to_end_mega():

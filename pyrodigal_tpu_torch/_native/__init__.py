@@ -179,6 +179,20 @@ NODE_FIELDS = [
 ]
 
 
+class NodesAddr(ctypes.Structure):
+    """`NodesStruct` with each array as a plain address: the same C layout
+    (a pointer a field, then `nn` and `capacity`), built from integers."""
+    _fields_ = ([(name, ctypes.c_void_p) for name, *_ in NodesStruct._fields_
+                 if name not in ("nn", "capacity")]
+                + [("nn", ctypes.c_int32), ("capacity", ctypes.c_int32)])
+
+
+def addr(arr):
+    """The address of a writable, non-empty numpy array's data, faster
+    than `arr.ctypes.data`."""
+    return ctypes.addressof(ctypes.c_char.from_buffer(arr))
+
+
 def make_nodes_struct(arrays, nn, capacity):
     """Build a NodesStruct pointing at the given dict of numpy arrays."""
     s = NodesStruct()
@@ -248,7 +262,29 @@ _lib.rc_stop_real.argtypes = [c_u8p, ctypes.c_int, _NP, ctypes.c_int, c_u8p]
 _lib.rc_sd_cand_luts.argtypes = [c_i32p, c_i32p]
 _lib.rc_edge_ups_flags.argtypes = [_NP, ctypes.c_int, ctypes.c_int, c_u8p]
 
+# one bin's exact re-run on node blocks (meta-mode finishing)
+_lib.rc_node_block_layout.argtypes = [ctypes.c_int, ctypes.c_void_p]
+_lib.rc_node_block_layout.restype = ctypes.c_int64
+_lib.rc_run_bin.argtypes = [
+    ctypes.POINTER(NodesAddr), ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_int, c_f64p]
+_lib.rc_run_bin.restype = ctypes.c_int
+_lib.rc_finish_bin.argtypes = [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_int]
+_lib.rc_finish_bin.restype = ctypes.c_int
+
 lib = _lib
+
+
+def node_block_offsets(nn):
+    """A node block of `nn` nodes: each array's byte offset, in
+    NODE_FIELDS order, then the block's size (int64, 27 entries)."""
+    off = np.empty(len(NODE_FIELDS) + 1, np.int64)
+    _lib.rc_node_block_layout(nn, off.ctypes.data)
+    return off
 
 
 def u8(arr):

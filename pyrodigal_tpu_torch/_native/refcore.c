@@ -2770,3 +2770,98 @@ void rc_edge_ups_flags(const nodes_t *nd, int slen, int closed,
     }
     free(eff);
 }
+
+/* ---- one bin's exact re-run, in two calls (meta-mode finishing) ---------
+ * A node block holds a nodes_t's arrays for nn nodes in one allocation, in
+ * the struct's field order, each array on an 8-byte boundary
+ * (rc_node_block_layout).  rc_run_bin and rc_finish_bin only compose the
+ * entry points above, in the order the chain of `Nodes` and `Genes`
+ * methods calls them, so their nodes and genes are that chain's; from
+ * Python each is one foreign call, which holds no interpreter lock. */
+#define RC_NODE_ARRAYS(X)                                                    \
+    X(ndx, 1) X(stop_val, 1) X(type, 1) X(strand, 1) X(edge, 1) X(elim, 1)  \
+    X(gc_bias, 1) X(ov_mark, 1) X(rbs0, 1) X(rbs1, 1) X(mot_ndx, 1)         \
+    X(mot_len, 1) X(mot_spacer, 1) X(mot_spacendx, 1) X(mot_score, 1)       \
+    X(gc_score, 3) X(gc_cont, 1) X(cscore, 1) X(uscore, 1) X(tscore, 1)     \
+    X(rscore, 1) X(sscore, 1) X(score, 1) X(star_ptr, 3) X(traceb, 1)       \
+    X(tracef, 1)
+
+/* The block's byte offset of each array, in field order, then its size,
+ * into `off` (27 entries) when it is not NULL; returns the size. */
+int64_t rc_node_block_layout(int nn, int64_t *off) {
+    int64_t o = 0;
+    int k = 0;
+#define X(f, w)                                                              \
+    if (off) off[k] = o;                                                     \
+    k++;                                                                     \
+    o += ((int64_t)nn * (w) * (int64_t)sizeof(*((nodes_t *)0)->f) + 7)      \
+         & ~(int64_t)7;
+    RC_NODE_ARRAYS(X)
+#undef X
+    if (off) off[k] = o;
+    return o;
+}
+
+static void bind_block(nodes_t *nd, uint8_t *block, int nn) {
+    int64_t off[32];
+    int k = 0;
+    rc_node_block_layout(nn, off);
+#define X(f, w) nd->f = (void *)(block + off[k++]);
+    RC_NODE_ARRAYS(X)
+#undef X
+    nd->nn = nd->capacity = nn;
+}
+
+static void copy_nodes(nodes_t *dst, const nodes_t *src) {
+    size_t n = (size_t)src->nn;
+#define X(f, w) memcpy(dst->f, src->f, n * (w) * sizeof(*src->f));
+    RC_NODE_ARRAYS(X)
+#undef X
+}
+
+/* One bin from prep's nodes `src` (read only): copy them into the block
+ * `work`, reset, score (meta), record the overlapping starts, copy the
+ * scored nodes into the block `snap` (the per-gene scores the writers
+ * print), then the final DP on `work`.  Both blocks hold src->nn nodes.
+ * Returns the path's end, or -1 without one; its score into *path_score. */
+int rc_run_bin(const nodes_t *src, uint8_t *work, uint8_t *snap,
+               const uint8_t *d, int slen, const training_t *tinf,
+               int closed, int max_sam_overlap, double *path_score) {
+    nodes_t w, s;
+    int ipath;
+
+    *path_score = 0.0;
+    if (src->nn == 0) return -1;
+    bind_block(&w, work, src->nn);
+    bind_block(&s, snap, src->nn);
+    copy_nodes(&w, src);
+    rc_reset_node_scores(&w);
+    rc_score_nodes(d, slen, &w, tinf, closed, 1);
+    rc_record_overlapping_starts(&w, tinf, 1, max_sam_overlap);
+    copy_nodes(&s, &w);
+    ipath = rc_dynamic_programming(&w, tinf, 1);
+    if (ipath >= 0) *path_score = w.score[ipath];
+    return ipath;
+}
+
+/* The winner's genes from its `work` block after rc_run_bin: eliminate the
+ * path's bad genes, extract the genes into the caller's arrays of `cap`
+ * entries, tweak their starts.  A path holds fewer genes than nodes, so
+ * `cap` >= nn always suffices; with less it returns -nn and touches
+ * nothing.  Returns the gene count. */
+int rc_finish_bin(uint8_t *work, int nn, int ipath, const training_t *tinf,
+                  int max_sam_overlap, int32_t *g_begin, int32_t *g_end,
+                  int32_t *g_start_ndx, int32_t *g_stop_ndx, int cap) {
+    nodes_t w;
+    int ng;
+
+    if (cap < nn) return -nn;
+    bind_block(&w, work, nn);
+    if (nn > 0) rc_eliminate_bad_genes(&w, ipath, tinf);
+    ng = rc_extract_genes(&w, ipath, g_begin, g_end, g_start_ndx, g_stop_ndx,
+                          cap);
+    if (ng < 0) return ng;
+    rc_tweak_final_starts(&w, ng, g_begin, g_end, g_start_ndx, g_stop_ndx,
+                          tinf, max_sam_overlap);
+    return ng;
+}

@@ -31,12 +31,15 @@ mesh over `device` runs the whole launch.  The genes are the same either
 way; a mesh is slower than one card today (`CudaMetaRunner`).
 """
 
+import collections
 import concurrent.futures
+import ctypes
 import threading
+import time
 
 import numpy as np
 
-from .. import tracing
+from .. import _native, tracing
 from .._constants import STOP
 from ..genes import Genes
 from ..nodes import Nodes
@@ -80,6 +83,14 @@ def std_buckets(nodes, slen):
     n = next((r for r in NODE_RUNGS if nodes <= r < NODE_BUCKET),
              NODE_BUCKET)
     return n, min(max(-(-slen // SEQ_STEP), 1) * SEQ_STEP, SEQ_BUCKET)
+
+
+# one bin's exact re-run (`CudaMetaRunner._run_bin`): the bin, its path's
+# end (-1 without a path) and score, the nodes' count, and two node blocks
+# (`_native.node_block_offsets`, None without nodes): `work` after the final
+# DP and `snapshot` scored before it, whose scores the writers print
+BinRun = collections.namedtuple(
+    "BinRun", ("bin", "ipath", "score", "nn", "work", "snapshot"))
 
 
 class CudaMetaRunner:
@@ -419,52 +430,69 @@ class CudaMetaRunner:
         genes.sequence = seq
         return genes
 
-    def _finish(self, seq, num_seq, bin_id, nodes, ipath, out_nodes):
+    def _finish(self, seq, num_seq, run):
+        """The genes of a chosen `BinRun`, from its work block in one
+        foreign call (`rc_finish_bin`: eliminate, extract, tweak)."""
         genes = self._genes(seq, num_seq)
-        tinf = self.bins[bin_id].training_info
-        if nodes.length > 0:
-            nodes.eliminate_bad_genes(ipath, tinf)
-        genes._extract(nodes, ipath)
-        genes._tweak_final_starts(nodes, tinf, self.max_overlap)
+        tinf = self.bins[run.bin].training_info
+        # begin, end, start and stop node a gene; a path holds fewer genes
+        # than nodes
+        g = np.empty((4, run.nn), np.int32)
+        a, row = _native.addr(g), 4 * run.nn
+        ng = _native.lib.rc_finish_bin(
+            _native.addr(run.work), run.nn, run.ipath, tinf.raw.ctypes.data,
+            self.max_overlap, a, a + row, a + 2 * row, a + 3 * row, run.nn)
+        genes.ipath = run.ipath
+        genes._begin, genes._end, genes._start_ndx, genes._stop_ndx = \
+            g[:, :ng].copy()
         # the reference re-extracts and rescores the nodes for the winning
         # bin after the sweep, so the written per-gene scores are the fresh
         # model scores without the eliminate/tweak adjustments
-        # (lib.pyx:5380-5394); `out_nodes` is that pre-DP snapshot
-        genes.nodes = out_nodes
-        genes.metagenomic_bin = self.bins[bin_id]
+        # (lib.pyx:5380-5394); the snapshot is those nodes
+        genes.nodes = Nodes.from_block(run.snapshot, run.nn)
+        genes.metagenomic_bin = self.bins[run.bin]
         genes.training_info = tinf
         return genes
 
-    def _score_winner(self, seq, nodes_by_tt, bin_id):
-        tinf = self.bins[bin_id].training_info
-        nodes = nodes_by_tt[tinf.translation_table].copy()
-        nodes.reset_scores()
-        nodes.score_nodes(seq, tinf, closed=self.closed, is_meta=True)
-        nodes.record_overlapping_starts(tinf, 1, self.max_overlap)
-        return nodes
-
     def _run_bin(self, seq, nodes_by_tt, bin_id):
-        """One bin on the exact engine, from a copy of prep's nodes:
-        (bin_id, nodes after the final DP, its path end, the pre-DP
-        snapshot that `_finish` writes)."""
-        nodes = self._score_winner(seq, nodes_by_tt, bin_id)
-        out_nodes = nodes.copy()
-        ipath = nodes.dynamic_programming(self.bins[bin_id].training_info,
-                                          final=True)
-        return bin_id, nodes, ipath, out_nodes
+        """One bin on the exact engine, from prep's nodes, in one foreign
+        call that holds no interpreter lock (`rc_run_bin`: copy, reset,
+        score, overlapping starts, snapshot, final DP): a `BinRun`.  The
+        open `finish.rerun` or `exact_route.bin` span gets `native_s`, the
+        seconds inside that call."""
+        tinf = self.bins[bin_id].training_info
+        src = nodes_by_tt[tinf.translation_table]
+        nn, native_ns = src.length, 0
+        ipath, score, work, snap = -1, ctypes.c_double(0.0), None, None
+        if nn > 0:
+            size = _native.lib.rc_node_block_layout(nn, None)
+            work, snap = np.empty(size, np.uint8), np.empty(size, np.uint8)
+            args = (ctypes.byref(src._addr_struct()), _native.addr(work),
+                    _native.addr(snap), seq.digits.ctypes.data, seq.slen,
+                    tinf.raw.ctypes.data, int(self.closed), self.max_overlap,
+                    ctypes.byref(score))
+            t0 = time.perf_counter_ns()
+            ipath = _native.lib.rc_run_bin(*args)
+            native_ns = time.perf_counter_ns() - t0
+        sp = tracing.current("finish.rerun", "exact_route.bin")
+        if sp:
+            sp.set(native_s=native_ns * 1e-9)
+        return BinRun(bin_id, ipath, score.value, nn, work, snap)
+
+    # the winner's re-runs go through this name, which genebench's
+    # instrument counts (`finish.bins_per_contig`)
+    _score_winner = _run_bin
 
     @staticmethod
     def _choose(runs):
-        """The reference's choice among `_run_bin` results in ascending bin
-        order: the highest path score above -100, the earliest bin on a
-        tie (a strict `>`, lib.pyx:5339-5374); None when no bin has a
-        path.  Only the best so far is kept alive."""
+        """The reference's choice among `BinRun`s in ascending bin order:
+        the highest path score above -100, the earliest bin on a tie (a
+        strict `>`, lib.pyx:5339-5374); None when no bin has a path.  Only
+        the best so far is kept alive."""
         chosen, max_score = None, -100.0
         for run in runs:
-            _b, nodes, ipath, _out = run
-            if nodes.length > 0 and ipath >= 0 \
-                    and nodes.score[ipath] > max_score:
-                chosen, max_score = run, nodes.score[ipath]
+            if run.nn > 0 and run.ipath >= 0 and run.score > max_score:
+                chosen, max_score = run, run.score
         return chosen
 
     def _produce_fallback(self, seq, num_seq, cand, nodes_by_tt):
@@ -482,7 +510,7 @@ class CudaMetaRunner:
         chosen = self._choose(futs.pop(0).result() for _ in cand)
         if chosen is None:
             return self._produce_empty(seq, num_seq)
-        return self._finish(seq, num_seq, *chosen)
+        return self._finish(seq, num_seq, chosen)
 
     # bins whose device (f32) path score lies within this margin of the
     # winner are re-run on the exact engine too
@@ -502,15 +530,15 @@ class CudaMetaRunner:
 
         def rerun(b):
             with tracing.span("finish.rerun", bin=b):
-                return self._run_bin(seq, nodes_by_tt, b)
+                return self._score_winner(seq, nodes_by_tt, b)
         chosen = self._choose(map(rerun, close))
         sp = tracing.current("finish")
         if sp:
             sp.set(bins=len(close),
-                   winner=chosen[0] if chosen is not None else None)
+                   winner=chosen.bin if chosen is not None else None)
         if chosen is None:
             return self._produce_empty(seq, num_seq)
-        return self._finish(seq, num_seq, *chosen)
+        return self._finish(seq, num_seq, chosen)
 
     def _produce_empty(self, seq, num_seq):
         genes = self._genes(seq, num_seq)

@@ -155,13 +155,14 @@ def span(name, **attrs):
     return Span(name, stack[-1] if stack else None, attrs)
 
 
-def current(name):
-    """The thread's innermost open span if it is named `name`, else
-    `OFF`: where a span's attributes are known only inside the work."""
+def current(*names):
+    """The thread's innermost open span if it is named one of `names`,
+    else `OFF`: where a span's attributes are known only inside the
+    work."""
     if not (_on or _profiler._is_profiler_enabled):
         return OFF
     stack = _stack()
-    return stack[-1] if stack and stack[-1].name == name else OFF
+    return stack[-1] if stack and stack[-1].name in names else OFF
 
 
 def carry(fn, name, **attrs):

@@ -171,8 +171,8 @@ def main(argv=None):
         for k, (ci, b, _key) in enumerate(work):
             if ci != args.contig:
                 continue
-            _b, nodes, ipath, _o = host._run_bin(seq, nodes_by_tt, b)
-            exact = float(nodes.score[ipath]) if ipath >= 0 else None
+            run = host._run_bin(seq, nodes_by_tt, b)
+            exact = run.score if run.ipath >= 0 else None
             rows.append({"bin": b, "card": float(best_card[k]),
                          "cpu_twins": float(best_cpu[k]), "exact": exact})
     finally:

@@ -34,6 +34,7 @@ torch = pytest.importorskip("torch")
 
 from pyrodigal_tpu_torch.fasta import parse  # noqa: E402
 from pyrodigal_tpu_torch.metagenomic import METAGENOMIC_BINS  # noqa: E402
+from pyrodigal_tpu_torch.nodes import Nodes  # noqa: E402
 from pyrodigal_tpu_torch.ops import dp_cuda, meta_cuda, star_cuda  # noqa: E402,E501
 from pyrodigal_tpu_torch.ops import score_device as sd  # noqa: E402
 from pyrodigal_tpu_torch.ops.meta_cuda import CudaMetaRunner  # noqa: E402
@@ -127,9 +128,9 @@ def _mega_scores(runner, geoms, bins, k):
 
 
 def _exact(runner, seq, nodes_by_tt, b):
-    nodes = runner._score_winner(seq, nodes_by_tt, b)
-    n = nodes.length
-    return (np.asarray(nodes.rscore[:n]), np.asarray(nodes.sscore[:n]))
+    run = runner._run_bin(seq, nodes_by_tt, b)
+    nodes = Nodes.from_block(run.snapshot, run.nn)
+    return (np.asarray(nodes.rscore), np.asarray(nodes.sscore))
 
 
 def _near_3prime_rev_starts(g, reach=20):
@@ -163,8 +164,7 @@ def _assert_best(runner, seq, nodes_by_tt, bins, best):
     """Per-bin best path scores within a tenth of the finishing margin of
     the exact engine's."""
     for b, dev in zip(bins, best):
-        _b, nodes, ipath, _out = runner._run_bin(seq, nodes_by_tt, b)
-        exact = float(nodes.score[ipath])
+        exact = runner._run_bin(seq, nodes_by_tt, b).score
         assert abs(float(dev) - exact) <= 0.1 * CudaMetaRunner._margin(
             exact), (b, float(dev), exact)
 

@@ -239,6 +239,30 @@ def test_exact_route_bins_run_beside_their_span(srr, mega_only,
         sum(s.attrs["bins"] for s in exact)
 
 
+@needs_bins
+@pytest.mark.parametrize("route", ["std", "c"])
+def test_exact_reruns_carry_their_native_seconds(srr, monkeypatch, route):
+    """Every bin re-run on the exact engine, `finish.rerun` (a launch's
+    winner) or `exact_route.bin` (the exact route), carries `native_s`:
+    the seconds inside its foreign call, at least 0 and at most the span's
+    own length."""
+    name = "finish.rerun"
+    if route == "c":
+        monkeypatch.setattr(meta_cuda, "SEQ_BUCKET", 2048)
+        monkeypatch.setattr(dp_cuda, "MEGA_CHUNKS", 0)
+        name = "exact_route.bin"
+    runner = _runner()
+    tracing.enable()
+    runner.find_genes_batch([srr[:8000], srr[8000:14000]])
+    runner.close()
+    assert runner.route_counts[route] == 2
+    spans = _named(name)
+    assert len(spans) >= 2
+    for s in spans:
+        assert 0 <= s.attrs["native_s"] <= s.seconds
+    assert sum(s.attrs["native_s"] for s in spans) > 0
+
+
 def test_mega_refusal_names_the_first_broken_constraint():
     """`_mega_refusal` on made-up geometries; `_mega_ok` is its None."""
     import numpy as np
